@@ -13,6 +13,9 @@ Public API (the reference's main path):
     prove(srs, assignment, circuit, rnd) -> (Proof, RndOracle)
     verify(srs, circuit, proof, y, z, yzs) -> bool
 
+`device=None` is the CUDA card; without one the constructors raise. Pass
+`device="cpu"` to run on the CPU.
+
 Submodules are imported lazily, so `import sonic_tpu_torch.golden` and
 friends stay cheap.
 """

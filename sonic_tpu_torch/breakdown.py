@@ -51,8 +51,8 @@ PHASES = [
     (protocol, "combine_windows", "window combine, all MSMs"),
     (protocol, "jacobians_to_host", "to_affine + fetch"),
     (pippenger, "_lay_out", "in MSMs: digits + layout"),
-    (pippenger, "accumulate", "in MSMs: scan (kernel 2)"),
-    (pippenger, "_fold_lanes", "in MSMs: lane fold"),
+    (pippenger, "make_plan", "in MSMs: bucket plan"),
+    (pippenger, "bucket_sums", "in MSMs: bucket sums (kernel 2)"),
     (pippenger, "_bucket_weighted_sum", "in MSMs: bucket weighted sum"),
     (commitment, "div_by_linear", "in openings: div_by_linear"),
     (commitment, "div_by_linear_batched", "in openings: div_by_linear_batched"),
@@ -94,6 +94,15 @@ def phase_timers(device: torch.device):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def phase_table(acc) -> list:
+    """The rows of `phase_timers`' table, phases first, longest first."""
+    lines = [f"  {'phase':40s} {'s':>10s} {'calls':>6s} {'mont_mul launches':>18s}"]
+    for label in sorted(acc, key=lambda k: (k.startswith("in "), -acc[k][0])):
+        s, calls, launches = acc[label]
+        lines.append(f"  {label:40s} {s:10.4f} {calls:6d} {launches:18d}")
+    return lines
 
 
 def device_profile(fn, device: torch.device, top: int = 20):
@@ -162,10 +171,7 @@ def main(argv=None) -> int:
         _sync(device)
         wall = time.perf_counter() - t0
     print(f"prove with phase timers: {wall} s", flush=True)
-    print(f"  {'phase':40s} {'s':>10s} {'calls':>6s} {'mont_mul launches':>18s}")
-    for label in sorted(acc, key=lambda k: (k.startswith("in "), -acc[k][0])):
-        s, calls, launches = acc[label]
-        print(f"  {label:40s} {s:10.4f} {calls:6d} {launches:18d}", flush=True)
+    print("\n".join(phase_table(acc)), flush=True)
 
     if args.profiler:
         pwall, nev, busy, rows = device_profile(prove, device)

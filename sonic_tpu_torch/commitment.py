@@ -48,8 +48,7 @@ def _check_hole(c0):
         )
 
 
-def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True,
-                lanes: int | None = None) -> WindowTotals:
+def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True) -> WindowTotals:
     """Commit(info, max, f(X)) -> F (CommitmentScheme.hs:20-33): MSM of f's
     coefficients against the g^(alpha x^(d-max+e)) rows."""
     lo = f.offset + srs.d - maxm  # lowest shifted exponent
@@ -58,20 +57,20 @@ def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True,
     if check_hole and lo <= 0 <= hi:
         _check_hole(f.coeffs[-lo])
     pts = _slice_table(srs.g_ax, lo + srs.d, f.length)
-    return msm_windows(pts, limb.from_mont(f.coeffs, FR), lanes=lanes)
+    return msm_windows(pts, limb.from_mont(f.coeffs, FR))
 
 
-def open_poly(srs: SRS, z, f: Laurent, lanes: int | None = None):
+def open_poly(srs: SRS, z, f: Laurent):
     """Open(info, F, z, f(X)) -> (f(z), W) (CommitmentScheme.hs:36-48).
     z: Fr element (Montgomery limbs). Returns (f(z) limbs, W)."""
     fz, w = div_by_linear(f, z)
     _check_range("openPoly", srs, w.offset, w.offset + w.length - 1)
     pts = _slice_table(srs.g_x, w.offset + srs.d, w.length)
-    return fz, msm_windows(pts, limb.from_mont(w.coeffs, FR), lanes=lanes)
+    return fz, msm_windows(pts, limb.from_mont(w.coeffs, FR))
 
 
-def commit_poly_batched(srs: SRS, maxm: int, offset: int, coeffs, check_hole: bool = True,
-                        lanes: int | None = None) -> WindowTotals:
+def commit_poly_batched(srs: SRS, maxm: int, offset: int, coeffs,
+                        check_hole: bool = True) -> WindowTotals:
     """M commitments sharing one exponent span: coeffs (M, D, L) at a common
     `offset` -> a batch (M,), as ONE batched MSM over one table slice."""
     lo = offset + srs.d - maxm
@@ -80,16 +79,16 @@ def commit_poly_batched(srs: SRS, maxm: int, offset: int, coeffs, check_hole: bo
     if check_hole and lo <= 0 <= hi:
         _check_hole(coeffs[:, -lo])
     pts = _slice_table(srs.g_ax, lo + srs.d, coeffs.shape[1])
-    return msm_windows(pts, limb.from_mont(coeffs, FR), lanes=lanes)
+    return msm_windows(pts, limb.from_mont(coeffs, FR))
 
 
-def open_poly_batched(srs: SRS, zs, offset: int, coeffs, lanes: int | None = None):
+def open_poly_batched(srs: SRS, zs, offset: int, coeffs):
     """M openings sharing one exponent span: coeffs (M, D, L) at `offset`,
     zs (M, L) -> (fz (M, L), W batch (M,))."""
     fz, w = div_by_linear_batched(offset, coeffs, zs)
     _check_range("openPoly", srs, offset, offset + w.shape[1] - 1)
     pts = _slice_table(srs.g_x, offset + srs.d, w.shape[1])
-    return fz, msm_windows(pts, limb.from_mont(w, FR), lanes=lanes)
+    return fz, msm_windows(pts, limb.from_mont(w, FR))
 
 
 def pcv(srs: SRS, maxm: int, commitment, z: int, v: int, w) -> bool:

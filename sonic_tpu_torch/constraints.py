@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from .circuit import ArithCircuit, Assignment
+from .device import resolve
 from .fields import limb
 from .fields.limb import FR
 from .poly.laurent import Laurent
@@ -46,6 +47,8 @@ class DeviceCircuit:
 
     @classmethod
     def from_host(cls, circuit: ArithCircuit, device=None) -> "DeviceCircuit":
+        """`device=None` is the card."""
+        device = resolve(device)
         w = circuit.weights
         return cls(
             wL=FR.from_int([list(r) for r in w.wL], device=device),
@@ -67,6 +70,8 @@ class DeviceAssignment:
 
     @classmethod
     def from_host(cls, a: Assignment, device=None) -> "DeviceAssignment":
+        """`device=None` is the card."""
+        device = resolve(device)
         return cls(
             aL=FR.from_int(list(a.aL), device=device),
             aR=FR.from_int(list(a.aR), device=device),

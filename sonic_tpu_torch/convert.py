@@ -3,6 +3,8 @@
 Everything here takes numpy arrays (what `np.asarray` gives for a JAX
 array) and never imports jax. Field elements keep the JAX layout: (..., L)
 16-bit limbs in Montgomery form; only the dtype changes (uint32 -> int64).
+`srs`, `circuit` and `assignment` put their tensors on the card unless
+`device` says otherwise.
 
     srs(d, g_x, g_ax, h_x, h_ax)           device SRS (tables as (x, y, inf))
     circuit(wL, wR, wO, cs)                DeviceCircuit
@@ -15,6 +17,7 @@ import torch
 
 from .constraints import DeviceAssignment, DeviceCircuit
 from .curve.group import Affine
+from .device import resolve
 from .fields.limb import FQ
 from .srs import SRS
 
@@ -46,6 +49,7 @@ def srs(d: int, g_x, g_ax, h_x, h_ax, device=None) -> SRS:
 
     g_x, g_ax: (x, y, inf) numpy arrays of the G1 tables; h_x, h_ax: the G2
     tables as (x, y, inf) arrays, kept as host points."""
+    device = resolve(device)
     return SRS(
         d,
         affine(*g_x, device=device),
@@ -56,8 +60,10 @@ def srs(d: int, g_x, g_ax, h_x, h_ax, device=None) -> SRS:
 
 
 def circuit(wL, wR, wO, cs, device=None) -> DeviceCircuit:
+    device = resolve(device)
     return DeviceCircuit(limbs(wL, device), limbs(wR, device), limbs(wO, device), limbs(cs, device))
 
 
 def assignment(aL, aR, aO, device=None) -> DeviceAssignment:
+    device = resolve(device)
     return DeviceAssignment(limbs(aL, device), limbs(aR, device), limbs(aO, device))

@@ -1,33 +1,53 @@
-// Kernel 2: Pippenger bucket accumulation for G1 with signed digits.
+// Kernel 2: Pippenger bucket sums for G1 with signed digits, lane-free.
 //
 // Replaces the TPU kernel sonic_tpu/msm/pallas_acc.py:_acc_kernel (launched
-// by _acc_pallas under accumulate_pallas / accumulate_batched_pallas). It
-// computes what pippenger._accumulate_buckets_scatter computes, and is
-// exactly equal, bucket for bucket, to msm/bucket_acc.py:accumulate_plain.
+// by _acc_pallas under accumulate_pallas / accumulate_batched_pallas),
+// together with the lane fold after it (sonic_tpu/msm/pippenger.py
+// _fold_lanes): the output is the folded grid, bucket (m, w, b) = the sum
+// of sign(d) P_n over the n with |digits[m, n, w]| = b, bucket 0 = infinity.
+// Exactly equal, bucket for bucket and in projective form, to
+// msm/bucket_acc.py:bucket_sums_plain on the same plan.
 //
-// Inputs: points xs, ys (K, T, 24) int64 Montgomery Fq limbs and infs
-// (K, T) uint8, shared by M digit sets digits (M, K, T, W) int32.
-// Output: out (3, M, K, W, B, 24) int64, the x, y, z planes of the
-// projective bucket grid in the JAX package's limb layout.
+// Inputs (msm/bucket_acc.py:make_plan builds them with torch index code):
+//   pts      (N, 24) uint32: x then y, 12 Montgomery words each, 96 B a
+//            point, so a point is six 16-byte loads;
+//   ent, key (E,) int32: every (m, n, w) with d != 0 and P_n finite, as
+//            n * 2 + (d < 0), sorted stably by key = (m W + w) B + |d|;
+//   slot0    (C,) int32: the first partial slot of each chunk of S entries;
+//   rounds   of merge offsets, each (G + 1,) int32: group g of a round is
+//            its input's [off[g], off[g+1]); the last round has one group
+//            per bucket.
+// Output: out (3, M, W, B, 24) int64, the x, y, z planes in the port's
+// limb layout; partials (P, 36) uint32 are scratch.
 //
-// What bounds it on an H100: integer multiply-adds. Each (point, window)
-// pair costs one RCB16 complete mixed addition, 11 Fq Montgomery products
-// (11 * 288 32-bit multiply-adds) plus 15 adds/subs, against 576 bytes of
-// bucket read and written, so it is compute bound; with one thread per
-// (MSM, lane, window) it is also latency bound unless the wrapper asks for
-// enough threads (pippenger.py sizes K so that M*K*W is about 2^15).
+// What bounds it on an H100: integer multiply-adds. An RCB16 mixed
+// addition is 11 Fq products, 11 * 2 * 12^2 word products of 32 x 32 -> 64
+// bits, each a lo and a hi multiply-add, against 96 B of point read from
+// L2, so the bound is the card's IMAD rate times the plan's E entries.
 //
-// Design (simple and right first): one thread per (m, k, w). The thread
-// sets its B buckets to infinity (0 : R mod q : 0) in device memory, then
-// walks t = 0 .. T-1 in order: it reads bucket |d|, forms +-P (y -> q - y
-// for d < 0), applies the mixed addition of group.py:_add_mixed_impl
-// step for step with field.cuh's mont_mul inlined, and writes the bucket
-// back. Walking each lane in the plain version's order gives bit-equal
-// grids. Bucket 0 collects the digit-0 points and is never read; an
-// infinity point leaves its bucket as it is. Threads of one (m, k) are
-// neighbours, so they read the same point (a broadcast) and neighbouring
-// digits. Left for later work: sorting by bucket, shared-memory tiles,
-// packed 32-bit buckets, wgmma.
+// Design:
+//   - Work ordered by bucket: one thread per chunk walks its S entries
+//     once and keeps the running sum of the current bucket in registers.
+//     The first entry of a bucket sets it to (x, +-y, 1); each further one
+//     is one mixed addition; when the key changes or the chunk ends, the
+//     sum goes out as one partial (144 B). So a bucket costs one write,
+//     not a bucket read and write per point; digit-0 pairs and points at
+//     infinity are not in the plan and cost nothing.
+//   - No lanes, so no K-fold grid for the tail. Enough threads whatever M:
+//     the wrapper asks sonic_bucket_sums_fill for the scan kernel's
+//     resident threads on this card (SMs x blocks per SM at its register
+//     count, from the occupancy API) and cuts the plan into that many
+//     chunks: one full wave.
+//   - Deterministic merge, no atomics: a second kernel sums a bucket's
+//     partials in slot order with the complete projective addition. A
+//     bucket cut into many chunks (one MSM over many points has few
+//     buckets and long runs) would make that a long serial chain on few
+//     threads, so the merge runs in rounds: each round sums pairs of
+//     consecutive partials of one bucket, one thread a pair, and the last
+//     round, one thread a bucket, writes the output layout.
+//   - The point table is packed into 32-bit words once per call (both G1
+//     tables of the main path, ~28,754 rows, are ~2.8 MB: L2-resident),
+//     and field.cuh's arithmetic is PTX carry chains.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -36,29 +56,64 @@ namespace {
 
 constexpr int NW = Fq::N;      // 12 words
 constexpr int LIMBS = 2 * NW;  // 24 limbs of 16 bits
+constexpr int SCAN_THREADS = 128;
+constexpr int MERGE_THREADS = 128;
 
-// RCB16 complete mixed addition, a = 0, 3b = 12 (group.py _add_mixed_impl,
-// pallas_acc.py _add_mixed_panel): (px : py : pz) += (qx, qy), in place.
-__device__ __forceinline__ void add_mixed(uint32_t* px, uint32_t* py, uint32_t* pz,
-                                          const uint32_t* qx, const uint32_t* qy) {
-  uint32_t sxy_p[NW], sxy_q[NW], t0[NW], t1[NW], t2[NW], t3[NW], t4[NW];
-  uint32_t yz[NW], xz[NW], u01[NW], y3[NW], z3[NW], m0[NW], m1[NW];
-  add_mod<Fq>(sxy_p, px, py);
-  add_mod<Fq>(sxy_q, qx, qy);
-  mont_mul<Fq>(t0, px, qx);
-  mont_mul<Fq>(t1, py, qy);
-  mont_mul<Fq>(t3, sxy_q, sxy_p);
-  mont_mul<Fq>(yz, qy, pz);
-  mont_mul<Fq>(xz, qx, pz);
-  add_mod<Fq>(u01, t0, t1);
-  add_mod<Fq>(t4, yz, py);
-  add_mod<Fq>(y3, xz, px);
-  sub_mod<Fq>(t3, t3, u01);  // X1 Y2 + X2 Y1
+__device__ __forceinline__ void set_one(uint32_t* z) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) z[j] = c_fq_one[j];
+}
+
+// 12 words from three 16-byte loads
+__device__ __forceinline__ void load_words(uint32_t* w, const uint4* __restrict__ p) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint4 v = __ldg(p + k);
+    w[4 * k] = v.x, w[4 * k + 1] = v.y, w[4 * k + 2] = v.z, w[4 * k + 3] = v.w;
+  }
+}
+
+// +-P for plan entry e = n * 2 + (d < 0)
+__device__ __forceinline__ void load_point(uint32_t* x, uint32_t* y, const uint4* __restrict__ pts,
+                                           int e) {
+  const uint4* p = pts + (size_t)(e >> 1) * 6;
+  load_words(x, p);
+  load_words(y, p + 3);
+  if (e & 1) neg_mod<Fq>(y, y);
+}
+
+// partial slot: x, y, z words, 144 B = 9 x 16 B
+__device__ __forceinline__ void store_partial(uint4* __restrict__ parts, int slot, const uint32_t* x,
+                                              const uint32_t* y, const uint32_t* z) {
+  uint4* p = parts + (size_t)slot * 9;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+    p[3 + k] = make_uint4(y[4 * k], y[4 * k + 1], y[4 * k + 2], y[4 * k + 3]);
+    p[6 + k] = make_uint4(z[4 * k], z[4 * k + 1], z[4 * k + 2], z[4 * k + 3]);
+  }
+}
+
+__device__ __forceinline__ void load_partial(uint32_t* x, uint32_t* y, uint32_t* z,
+                                             const uint4* __restrict__ parts, int slot) {
+  const uint4* p = parts + (size_t)slot * 9;
+  load_words(x, p);
+  load_words(y, p + 3);
+  load_words(z, p + 6);
+}
+
+// The common end of RCB16 algorithms 7 and 8 (a = 0, 3b = 12), as in
+// curve/group.py: from t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, t3 = X1 Y2 + X2 Y1,
+// t4 = Y1 Z2 + Y2 Z1, y3 = X1 Z2 + X2 Z1 to (px : py : pz). Clobbers its inputs.
+__device__ __forceinline__ void rcb_finish(uint32_t* px, uint32_t* py, uint32_t* pz, uint32_t* t0,
+                                           uint32_t* t1, uint32_t* t2, uint32_t* t3,
+                                           uint32_t* t4, uint32_t* y3) {
+  uint32_t m0[NW], m1[NW], z3[NW];
   // t0 = 3 t0
   add_mod<Fq>(m0, t0, t0);
   add_mod<Fq>(t0, m0, t0);
-  // t2 = 12 pz
-  add_mod<Fq>(m0, pz, pz);
+  // t2 = 12 t2
+  add_mod<Fq>(m0, t2, t2);
   add_mod<Fq>(m1, m0, m0);
   add_mod<Fq>(m0, m1, m1);
   add_mod<Fq>(t2, m0, m1);
@@ -81,67 +136,148 @@ __device__ __forceinline__ void add_mixed(uint32_t* px, uint32_t* py, uint32_t* 
   add_mod<Fq>(pz, m0, m1);
 }
 
-__global__ void __launch_bounds__(128)
-bucket_acc_kernel(const int64_t* __restrict__ xs, const int64_t* __restrict__ ys,
-                  const uint8_t* __restrict__ infs, const int32_t* __restrict__ digits,
-                  int64_t* __restrict__ out, int M, int K, int T, int W, int B) {
-  long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)M * K * W;
-  if (tid >= total) return;
-  const int w = (int)(tid % W);
-  const long long mk = tid / W;  // m * K + k
-  const int k = (int)(mk % K);
-  const size_t plane = (size_t)total * B * LIMBS;
-  int64_t* bx = out + (size_t)tid * B * LIMBS;  // bucket (m, k, w, 0)
-  int64_t* by = bx + plane;
-  int64_t* bz = by + plane;
+// RCB16 complete mixed addition (algorithm 8, group.py add_mixed):
+// (px : py : pz) += (qx, qy), in place; 11 products.
+__device__ __forceinline__ void add_mixed(uint32_t* px, uint32_t* py, uint32_t* pz,
+                                          const uint32_t* qx, const uint32_t* qy) {
+  uint32_t t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], y3[NW], u[NW], v[NW];
+  add_mod<Fq>(u, px, py);
+  add_mod<Fq>(v, qx, qy);
+  mont_mul<Fq>(t3, v, u);
+  mont_mul<Fq>(t0, px, qx);
+  mont_mul<Fq>(t1, py, qy);
+  add_mod<Fq>(u, t0, t1);
+  sub_mod<Fq>(t3, t3, u);  // X1 Y2 + X2 Y1
+  mont_mul<Fq>(u, qy, pz);
+  add_mod<Fq>(t4, u, py);  // Y2 Z1 + Y1
+  mont_mul<Fq>(u, qx, pz);
+  add_mod<Fq>(y3, u, px);  // X2 Z1 + X1
+  copy<NW>(t2, pz);
+  rcb_finish(px, py, pz, t0, t1, t2, t3, t4, y3);
+}
 
-  uint32_t zero[NW], one[NW];
+// RCB16 complete addition (algorithm 7, group.py add):
+// (px : py : pz) += (qx : qy : qz), in place; 14 products.
+__device__ __forceinline__ void add_full(uint32_t* px, uint32_t* py, uint32_t* pz,
+                                         const uint32_t* qx, const uint32_t* qy,
+                                         const uint32_t* qz) {
+  uint32_t t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], y3[NW], u[NW], v[NW];
+  mont_mul<Fq>(t0, px, qx);
+  mont_mul<Fq>(t1, py, qy);
+  mont_mul<Fq>(t2, pz, qz);
+  add_mod<Fq>(u, px, py);
+  add_mod<Fq>(v, qx, qy);
+  mont_mul<Fq>(t3, u, v);
+  add_mod<Fq>(u, t0, t1);
+  sub_mod<Fq>(t3, t3, u);  // X1 Y2 + X2 Y1
+  add_mod<Fq>(u, py, pz);
+  add_mod<Fq>(v, qy, qz);
+  mont_mul<Fq>(t4, u, v);
+  add_mod<Fq>(u, t1, t2);
+  sub_mod<Fq>(t4, t4, u);  // Y1 Z2 + Y2 Z1
+  add_mod<Fq>(u, px, pz);
+  add_mod<Fq>(v, qx, qz);
+  mont_mul<Fq>(y3, u, v);
+  add_mod<Fq>(u, t0, t2);
+  sub_mod<Fq>(y3, y3, u);  // X1 Z2 + X2 Z1
+  rcb_finish(px, py, pz, t0, t1, t2, t3, t4, y3);
+}
+
+// Phase 1: chunk j walks plan entries [j S, min((j + 1) S, E)).
+__global__ void __launch_bounds__(SCAN_THREADS)
+bucket_scan_kernel(const uint4* __restrict__ pts, const int32_t* __restrict__ ent,
+                   const int32_t* __restrict__ key, const int32_t* __restrict__ slot0,
+                   uint4* __restrict__ parts, long long E, int S, int C) {
+  const int j = blockIdx.x * SCAN_THREADS + threadIdx.x;
+  if (j >= C) return;
+  const long long i0 = (long long)j * S;
+  const long long i1 = min(i0 + S, E);
+  int slot = slot0[j];
+  int cur = key[i0];
+  uint32_t px[NW], py[NW], pz[NW];
+  load_point(px, py, pts, ent[i0]);
+  set_one(pz);
+  for (long long i = i0 + 1; i < i1; ++i) {
+    const int k = key[i];
+    uint32_t qx[NW], qy[NW];
+    load_point(qx, qy, pts, ent[i]);
+    if (k != cur) {
+      store_partial(parts, slot++, px, py, pz);
+      cur = k;
+      copy<NW>(px, qx);
+      copy<NW>(py, qy);
+      set_one(pz);
+    } else {
+      add_mixed(px, py, pz, qx, qy);
+    }
+  }
+  store_partial(parts, slot, px, py, pz);
+}
+
+// Phase 2, one merge round: group g = the sum of src[off[g] .. off[g+1])
+// in order (infinity if empty), written as a partial to dst or, in the last
+// round (dst null, one group per bucket), as bucket g of the output.
+__global__ void __launch_bounds__(MERGE_THREADS)
+bucket_merge_kernel(const uint4* __restrict__ src, const int32_t* __restrict__ off,
+                    uint4* __restrict__ dst, int64_t* __restrict__ out, int G) {
+  const int g = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (g >= G) return;
+  const int lo = off[g], hi = off[g + 1];
+  uint32_t px[NW], py[NW], pz[NW];
+  if (lo == hi) {
 #pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    zero[j] = 0;
-    one[j] = c_fq_one[j];
+    for (int j = 0; j < NW; ++j) px[j] = pz[j] = 0;
+    set_one(py);
+  } else {
+    load_partial(px, py, pz, src, lo);
+    for (int p = lo + 1; p < hi; ++p) {
+      uint32_t qx[NW], qy[NW], qz[NW];
+      load_partial(qx, qy, qz, src, p);
+      add_full(px, py, pz, qx, qy, qz);
+    }
   }
-  for (int b = 0; b < B; ++b) {
-    store_limbs<NW>(bx + b * LIMBS, zero);
-    store_limbs<NW>(by + b * LIMBS, one);
-    store_limbs<NW>(bz + b * LIMBS, zero);
+  if (dst != nullptr) {
+    store_partial(dst, g, px, py, pz);
+    return;
   }
-
-  const int32_t* dig = digits + mk * T * W + w;
-  for (int t = 0; t < T; ++t) {
-    const long long pt = (long long)k * T + t;
-    const int d = dig[(long long)t * W];
-    const int bi = d < 0 ? -d : d;
-    if (infs[pt]) continue;  // the wrapper checks |d| < B
-    uint32_t qx[NW], qy[NW], px[NW], py[NW], pz[NW];
-    load_limbs<NW>(qx, xs + pt * LIMBS);
-    load_limbs<NW>(qy, ys + pt * LIMBS);
-    if (d < 0) neg_mod<Fq>(qy, qy);
-    int64_t* cx = bx + bi * LIMBS;
-    int64_t* cy = by + bi * LIMBS;
-    int64_t* cz = bz + bi * LIMBS;
-    load_limbs<NW>(px, cx);
-    load_limbs<NW>(py, cy);
-    load_limbs<NW>(pz, cz);
-    add_mixed(px, py, pz, qx, qy);
-    store_limbs<NW>(cx, px);
-    store_limbs<NW>(cy, py);
-    store_limbs<NW>(cz, pz);
-  }
+  const size_t plane = (size_t)G * LIMBS;
+  int64_t* o = out + (size_t)g * LIMBS;
+  store_limbs<NW>(o, px);
+  store_limbs<NW>(o + plane, py);
+  store_limbs<NW>(o + 2 * plane, pz);
 }
 
 }  // namespace
 
-extern "C" int sonic_bucket_acc(const void* xs, const void* ys, const void* infs,
-                                const void* digits, void* out, int M, int K, int T,
-                                int W, int B, void* stream) {
-  const long long total = (long long)M * K * W;
-  if (total == 0) return 0;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  bucket_acc_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)xs, (const int64_t*)ys, (const uint8_t*)infs,
-      (const int32_t*)digits, (int64_t*)out, M, K, T, W, B);
+extern "C" int sonic_bucket_scan(const void* pts, const void* ent, const void* key,
+                                 const void* slot0, void* parts, long long E, int S, int C,
+                                 void* stream) {
+  if (C > 0)
+    bucket_scan_kernel<<<(C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0,
+                         (cudaStream_t)stream>>>((const uint4*)pts, (const int32_t*)ent,
+                                                 (const int32_t*)key, (const int32_t*)slot0,
+                                                 (uint4*)parts, E, S, C);
   return (int)cudaGetLastError();
+}
+
+// dst null: the last round, into out (3, G, 24) int64
+extern "C" int sonic_bucket_merge(const void* src, const void* off, void* dst, void* out, int G,
+                                  void* stream) {
+  if (G > 0)
+    bucket_merge_kernel<<<(G + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0,
+                          (cudaStream_t)stream>>>((const uint4*)src, (const int32_t*)off,
+                                                  (uint4*)dst, (int64_t*)out, G);
+  return (int)cudaGetLastError();
+}
+
+// Threads of the scan kernel resident on the whole card at once (SMs x
+// blocks per SM at its register count), or minus a CUDA error code.
+extern "C" long long sonic_bucket_sums_fill(int device) {
+  int sms = 0, blocks = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bucket_scan_kernel,
+                                                        SCAN_THREADS, 0);
+  if (err != cudaSuccess) return -(long long)err;
+  return (long long)sms * blocks * SCAN_THREADS;
 }

@@ -4,12 +4,18 @@
 // Montgomery form with R = 2^256 and 2^384: the same R, and so the same
 // Montgomery integers, as the 16-bit limbs of the Python side
 // (fields/limb.py). Kernels read int64 tensors of 16-bit limbs and regroup
-// pairs of limbs into one word in registers (load_limbs / store_limbs).
+// pairs of limbs into one word (load_limbs / store_limbs), or read tables
+// the wrapper packed into 32-bit words already.
 //
-// mont_mul is CIOS (coarsely integrated operand scanning) with 64-bit
-// accumulators: word products of two 32-bit words plus two 32-bit addends
-// never exceed 2^64 - 1. Every loop has a compile-time trip count and is
-// unrolled, so operands stay in registers.
+// mont_mul is CIOS (coarsely integrated operand scanning) written as PTX
+// carry chains: each row a*b_i is two chains, the low halves of the word
+// products (mad.lo.cc / madc.lo.cc) into t[0..N-1] and the high halves
+// (mad.hi.cc / madc.hi.cc) into t[1..N], and the reduction by m*p the
+// same, so a product issues 4 N^2 multiply-adds (2 N^2 word products, each
+// a lo and a hi half) and no separate carry arithmetic. add_mod / sub_mod
+// are add.cc / addc.cc and sub.cc / subc.cc chains. The carry flag lives
+// only inside one chain of back-to-back asm statements. Every loop has a
+// compile-time trip count and is unrolled, so operands stay in registers.
 #pragma once
 
 #include <cstdint>
@@ -40,6 +46,63 @@ struct Fq {
   static __device__ __forceinline__ const uint32_t* mod() { return c_fq_mod; }
 };
 
+// -- PTX carry-chain primitives ------------------------------------------------
+
+namespace ptx {
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+}  // namespace ptx
+
+// -- layout ----------------------------------------------------------------------
+
 // (..., 2N) int64 limbs of 16 bits -> N words
 template <int N>
 __device__ __forceinline__ void load_limbs(uint32_t* w, const int64_t* src) {
@@ -48,13 +111,13 @@ __device__ __forceinline__ void load_limbs(uint32_t* w, const int64_t* src) {
     w[j] = (uint32_t)src[2 * j] | ((uint32_t)src[2 * j + 1] << 16);
 }
 
+// N words -> 2N int64 limbs, as 16-byte stores (dst must be 16-byte aligned)
 template <int N>
 __device__ __forceinline__ void store_limbs(int64_t* dst, const uint32_t* w) {
+  longlong2* d = reinterpret_cast<longlong2*>(dst);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    dst[2 * j] = (int64_t)(w[j] & 0xffffu);
-    dst[2 * j + 1] = (int64_t)(w[j] >> 16);
-  }
+  for (int j = 0; j < N; ++j)
+    d[j] = make_longlong2((long long)(w[j] & 0xffffu), (long long)(w[j] >> 16));
 }
 
 template <int N>
@@ -63,20 +126,20 @@ __device__ __forceinline__ void copy(uint32_t* r, const uint32_t* a) {
   for (int j = 0; j < N; ++j) r[j] = a[j];
 }
 
+// -- arithmetic --------------------------------------------------------------------
+
 // r = x - p if x >= p (x given as N words plus a top word), else x
 template <class F>
 __device__ __forceinline__ void reduce_once(uint32_t* r, const uint32_t* x, uint32_t top) {
   constexpr int N = F::N;
   const uint32_t* p = F::mod();
   uint32_t d[N];
-  uint32_t borrow = 0;
+  d[0] = ptx::sub_cc(x[0], p[0]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t t = (uint64_t)x[j] - p[j] - borrow;
-    d[j] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  bool take = top != 0 || borrow == 0;
+  for (int j = 1; j < N; ++j) d[j] = ptx::subc_cc(x[j], p[j]);
+  // top - borrow is 0 when top is 0 and x >= p; a nonzero top means x > p
+  const uint32_t hi = ptx::subc(top, 0);
+  const bool take = (hi == 0) | (top != 0);
 #pragma unroll
   for (int j = 0; j < N; ++j) r[j] = take ? d[j] : x[j];
 }
@@ -91,28 +154,31 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a, const u
   for (int j = 0; j < N + 2; ++j) t[j] = 0;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
+    const uint32_t bi = b[i];
+    // t += a * b_i: low halves into t[0..N-1], high halves into t[1..N]
+    t[0] = ptx::mad_lo_cc(a[0], bi, t[0]);
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * F::n0;
-    s = (uint64_t)m * p[0] + t[0];
-    c = s >> 32;
+    for (int j = 1; j < N; ++j) t[j] = ptx::madc_lo_cc(a[j], bi, t[j]);
+    t[N] = ptx::addc_cc(t[N], 0);
+    t[N + 1] = ptx::addc(t[N + 1], 0);
+    t[1] = ptx::mad_hi_cc(a[0], bi, t[1]);
 #pragma unroll
-    for (int j = 1; j < N; ++j) {
-      s = (uint64_t)m * p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+    for (int j = 1; j < N; ++j) t[j + 1] = ptx::madc_hi_cc(a[j], bi, t[j + 1]);
+    t[N + 1] = ptx::addc(t[N + 1], 0);
+    // t += m * p with m = t_0 n0 mod 2^32, which clears t[0]; then t >>= 32
+    const uint32_t m = t[0] * F::n0;
+    t[0] = ptx::mad_lo_cc(m, p[0], t[0]);
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j] = ptx::madc_lo_cc(m, p[j], t[j]);
+    t[N] = ptx::addc_cc(t[N], 0);
+    t[N + 1] = ptx::addc(t[N + 1], 0);
+    t[1] = ptx::mad_hi_cc(m, p[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < N; ++j) t[j + 1] = ptx::madc_hi_cc(m, p[j], t[j + 1]);
+    t[N + 1] = ptx::addc(t[N + 1], 0);
+#pragma unroll
+    for (int j = 0; j <= N; ++j) t[j] = t[j + 1];
+    t[N + 1] = 0;
   }
   reduce_once<F>(r, t, t[N]);  // t < 2p
 }
@@ -122,14 +188,11 @@ template <class F>
 __device__ __forceinline__ void add_mod(uint32_t* r, const uint32_t* a, const uint32_t* b) {
   constexpr int N = F::N;
   uint32_t s[N];
-  uint64_t c = 0;
+  s[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    c += (uint64_t)a[j] + b[j];
-    s[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  reduce_once<F>(r, s, (uint32_t)c);
+  for (int j = 1; j < N; ++j) s[j] = ptx::addc_cc(a[j], b[j]);
+  const uint32_t top = ptx::addc(0, 0);
+  reduce_once<F>(r, s, top);
 }
 
 // r = a - b mod p
@@ -138,21 +201,14 @@ __device__ __forceinline__ void sub_mod(uint32_t* r, const uint32_t* a, const ui
   constexpr int N = F::N;
   const uint32_t* p = F::mod();
   uint32_t d[N];
-  uint32_t borrow = 0;
+  d[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t t = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  uint32_t mask = 0u - borrow;  // add p back when the difference went negative
-  uint64_t c = 0;
+  for (int j = 1; j < N; ++j) d[j] = ptx::subc_cc(a[j], b[j]);
+  const uint32_t mask = ptx::subc(0, 0);  // all ones when the difference went negative
+  r[0] = ptx::add_cc(d[0], p[0] & mask);
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    c += (uint64_t)d[j] + (p[j] & mask);
-    r[j] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int j = 1; j < N - 1; ++j) r[j] = ptx::addc_cc(d[j], p[j] & mask);
+  r[N - 1] = ptx::addc(d[N - 1], p[N - 1] & mask);
 }
 
 // r = -a mod p (0 stays 0)

@@ -14,7 +14,7 @@ Two circuits:
 
 Phase times go to stderr, after a device synchronize.
 
-Usage: python -m sonic_tpu_torch.example [--device cpu|cuda] [--seed N]
+Usage: python -m sonic_tpu_torch.example [--device cuda|cpu] [--seed N]
                                          [--n N] [--q Q]
 """
 from __future__ import annotations
@@ -83,7 +83,7 @@ def random_protocol(n: int, q: int, rng, device) -> bool:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--device", default="cpu", help="torch device: cpu or cuda")
+    parser.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--n", type=int, default=None, help="gates of a random circuit")
     parser.add_argument("--q", type=int, default=None, help="its linear constraints")

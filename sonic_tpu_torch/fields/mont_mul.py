@@ -1,7 +1,8 @@
 """Montgomery multiply: the wrapper of CUDA kernel 1 and its plain version.
 
 Port of `sonic_tpu/fields/pallas_mul.py` (`_mont_mul_kernel`, launched by
-`mont_mul`). The kernel is `csrc/mont_mul.cu`; its field arithmetic lives in
+`mont_mul`). The kernel is `csrc/mont_mul.cu` (coalesced 16-byte tile
+loads and stores through shared memory); its field arithmetic lives in
 `csrc/field.cuh`, which the bucket kernel inlines too.
 
 `mont_mul` dispatches on the device of its operands: CPU tensors take
@@ -61,10 +62,12 @@ def _launch(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
         return out
 
     def operand(x):
-        # a single element is read with stride 0 instead of being expanded
+        # a single element is read with stride 0 instead of being expanded;
+        # a tile is read with 16-byte loads, so its start must be aligned
         if x.numel() == L:
             return x.contiguous(), 0
-        return x.expand(shape).contiguous(), L
+        x = x.expand(shape).contiguous()
+        return (x.clone() if x.data_ptr() % 16 else x), L
 
     (a_, sa), (b_, sb) = operand(a), operand(b)
     rc = kernels.lib().sonic_mont_mul(

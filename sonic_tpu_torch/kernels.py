@@ -77,7 +77,11 @@ def lib():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         so.sonic_mont_mul.restype = i
         so.sonic_mont_mul.argtypes = [vp, vp, vp, ll, i, ll, ll, vp]
-        so.sonic_bucket_acc.restype = i
-        so.sonic_bucket_acc.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        so.sonic_bucket_scan.restype = i
+        so.sonic_bucket_scan.argtypes = [vp, vp, vp, vp, vp, ll, i, i, vp]
+        so.sonic_bucket_merge.restype = i
+        so.sonic_bucket_merge.argtypes = [vp, vp, vp, vp, i, vp]
+        so.sonic_bucket_sums_fill.restype = ll
+        so.sonic_bucket_sums_fill.argtypes = [i]
         _LIB = so
     return _LIB

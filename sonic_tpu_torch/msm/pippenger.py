@@ -3,27 +3,22 @@
 Port of `sonic_tpu/msm/pippenger.py` (G1 and signed digits only):
 
   - scalars split into W + 1 signed c-bit digits (`_signed_digits`);
-  - points split across K lanes; the scan phase (kernel 2,
-    `msm/bucket_acc.py`) adds each lane's points into its
-    (lane, window, |digit|) bucket;
-  - the tail in plain torch: lanes folded as a halving tree, buckets
-    weighted-summed, windows combined with c doublings each.
+  - the bucket plan (`make_plan`: every nonzero digit on a finite point,
+    sorted by (MSM, window, |digit|)) and the bucket sums over it (kernel 2,
+    `msm/bucket_acc.py`), which hold each (MSM, window, |digit|) bucket's
+    sum directly: no lanes, so no lane fold;
+  - the tail in plain torch: buckets weighted-summed, windows combined
+    with c doublings each.
 
-`msm_batched` runs M MSMs that share one point table as one scan launch and
-one batched tail. `msm_windows` stops before the window combine, so a
-caller with many MSMs (the prover) finishes them all in one batched
-`combine_windows`.
+`msm_batched` runs M MSMs that share one point table as one plan, one
+kernel launch and one batched tail. `msm_windows` stops before the window
+combine, so a caller with many MSMs (the prover) finishes them all in one
+batched `combine_windows`.
 
-Window size and lane count on CUDA: the scan kernel runs one thread per
-(MSM, lane, window), so K is chosen to put about 2^15 threads on the card
-(M*K*W ~ 2^15, tens of thousands rather than the TPU's 128 lanes). The tail
-then folds an (M, K, W, B) grid of about 2^15 * B points in plain torch, so
-c = 6 (B = 33 buckets, W = 44 windows) keeps that grid near 10^6 points;
-c = 8 would quadruple it, and smaller c adds windows to the serial window
-combine. On the CPU (the tests' plain path) every step of the scan is one
-batched mixed addition whose cost is mostly per-op overhead, while the
-fold's cost grows with K*W*B, so 16 lanes; c follows the reference's CPU
-`_pick_c`.
+Window size: c = 6 on CUDA (B = 33 buckets, W = 44 windows), which keeps
+the plain-torch bucket weighted sum short; larger c would cut the scan's
+entries (~256/c per scalar) but double the buckets per step of c. On the
+CPU (the tests' plain path) c follows the reference's CPU `_pick_c`.
 """
 from __future__ import annotations
 
@@ -33,12 +28,9 @@ import torch
 
 from ..curve.group import Affine, Jacobian, g1, cat
 from ..fields import constants as C
-from .bucket_acc import accumulate
+from .bucket_acc import bucket_sums, make_plan
 
 CUDA_C = 6
-CUDA_THREADS = 1 << 15
-CPU_LANES = 16
-CPU_STEPS = 64
 CPU_SMALL_C = 4
 
 
@@ -52,15 +44,6 @@ def _pick_c(n: int, device) -> int:
     if n <= 1 << 15:
         return 9
     return 10
-
-
-def _pick_lanes(n: int, m: int, windows: int, device) -> int:
-    if torch.device(device).type == "cuda":
-        k = max(1, CUDA_THREADS // (m * windows))
-        k = 1 << (k.bit_length() - 1)
-    else:
-        k = min(CPU_LANES, n // CPU_STEPS)
-    return max(1, min(k, n))
 
 
 def _digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
@@ -108,12 +91,6 @@ def _tree_sum(p: Jacobian, dim: int) -> Jacobian:
             s = cat([s, p.map(lambda a: a.narrow(dim, 2 * h, 1))], s.x.dim() + dim)
         p, n = s, s.x.shape[dim]
     return p.map(lambda a: a.squeeze(dim))
-
-
-def _fold_lanes(buckets: Jacobian) -> Jacobian:
-    """(..., K, W, B) -> (..., W, B): a halving tree over the lanes, log2(K)
-    batched additions instead of the reference's K-step scan."""
-    return _tree_sum(buckets, -4)
 
 
 def _bucket_weighted_sum(buckets: Jacobian) -> Jacobian:
@@ -172,50 +149,36 @@ def combine_windows(parts: list[WindowTotals]) -> list[Jacobian]:
     return out
 
 
-def _lay_out(points: Affine, scalars_std: torch.Tensor, m: int, c, lanes):
-    """Pad N to a multiple of K (zero scalars hit the trash bucket, infinity
-    points change nothing) and cut the points into (K, T) lanes: point i
-    goes to lane i // T, step i % T."""
-    n = scalars_std.shape[-2]
-    dev = scalars_std.device
+def _lay_out(scalars_std: torch.Tensor, c):
+    """Signed digits (..., N, W) of the scalars at window size c (None: the
+    device's choice), with c and the bucket count B = 2^(c-1) + 1."""
     if c is None:
-        c = _pick_c(n, dev)
-    W = (scalars_std.shape[-1] * C.LIMB_BITS + c - 1) // c + 1
-    K = _pick_lanes(n, m, W, dev) if lanes is None else max(1, min(lanes, n))
-    T = -(-n // K)
-    pad = K * T - n
-    x, y, inf = points
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])], 0)
-        y = torch.cat([y, y.new_zeros((pad,) + y.shape[1:])], 0)
-        inf = torch.cat([inf, inf.new_ones((pad,))], 0)
-        zeros = scalars_std.new_zeros(scalars_std.shape[:-2] + (pad, scalars_std.shape[-1]))
-        scalars_std = torch.cat([scalars_std, zeros], -2)
-    pts = Affine(x.reshape(K, T, -1), y.reshape(K, T, -1), inf.reshape(K, T))
-    digits = _signed_digits(scalars_std, c)
-    digits = digits.reshape(digits.shape[:-2] + (K, T, W))
-    return pts, digits, c, (1 << (c - 1)) + 1
+        c = _pick_c(scalars_std.shape[-2], scalars_std.device)
+    return _signed_digits(scalars_std, c), c, (1 << (c - 1)) + 1
 
 
 def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                lanes: int | None = None) -> WindowTotals:
-    """The MSMs of `msm` / `msm_batched` up to their window totals: one scan
-    launch (kernel 2), the lane fold and the bucket weighted sums. Finish
-    them with `combine_windows`."""
-    m = scalars_std.shape[0] if scalars_std.dim() == 3 else 1
-    pts, digits, c, nb = _lay_out(points, scalars_std, m, c, lanes)
-    return WindowTotals(_bucket_weighted_sum(_fold_lanes(accumulate(pts, digits, nb))), c)
+                chunks: int | None = None) -> WindowTotals:
+    """The MSMs of `msm` / `msm_batched` up to their window totals: the
+    bucket plan, one bucket-sums launch (kernel 2) and the bucket weighted
+    sums. `chunks` overrides the plan's chunk count. Finish them with
+    `combine_windows`."""
+    digits, c, nb = _lay_out(scalars_std, c)
+    sums = bucket_sums(points, make_plan(points.inf, digits, nb, chunks))
+    if scalars_std.dim() == 2:
+        sums = sums.map(lambda a: a[0])
+    return WindowTotals(_bucket_weighted_sum(sums), c)
 
 
 def msm(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-        lanes: int | None = None) -> Jacobian:
+        chunks: int | None = None) -> Jacobian:
     """Sum_i scalars[i] * points[i]. points: Affine batch (N,);
     scalars_std: (N, 16) Fr limbs in STANDARD form. Returns one Jacobian."""
-    return combine_windows([msm_windows(points, scalars_std, c, lanes)])[0]
+    return combine_windows([msm_windows(points, scalars_std, c, chunks)])[0]
 
 
 def msm_batched(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                lanes: int | None = None) -> Jacobian:
+                chunks: int | None = None) -> Jacobian:
     """M independent MSMs SHARING one point table: scalars (M, N, 16) ->
-    Jacobian batch (M,). One scan launch and one batched tail."""
-    return msm(points, scalars_std, c, lanes)
+    Jacobian batch (M,). One plan, one kernel launch and one batched tail."""
+    return msm(points, scalars_std, c, chunks)

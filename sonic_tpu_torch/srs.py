@@ -23,6 +23,7 @@ import torch
 from . import golden
 from . import golden_protocol as gp
 from .curve.group import Affine, g1
+from .device import resolve
 from .fields import limb
 from .fields.limb import FQ, FR
 
@@ -51,12 +52,13 @@ class SRS:
         Only h_mode="verifier" exists: pcV reads h^(x^(-d+max)) for max in
         {n, d}, h^alpha and h^(alpha x), computed here on the host from the
         trapdoor for every circuit size in `n_hints` (the trapdoor is not
-        kept, so a missing size raises later)."""
+        kept, so a missing size raises later). `device=None` is the card."""
         if h_mode != "verifier":
             raise ValueError(
                 f"h_mode {h_mode!r}: only 'verifier' is ported; the device G2 "
                 "tables wait for fixed_base_mul and Fq2 (ROADMAP)"
             )
+        device = resolve(device)
         x_m = FR.from_int(x, device=device)
         alpha_m = FR.from_int(alpha, device=device)
         pos = limb.powers(x_m, FR, d + 1)  # x^0 .. x^d
@@ -84,8 +86,9 @@ class SRS:
 
     @classmethod
     def from_host(cls, srs: gp.SRS, device=None) -> "SRS":
-        """Upload a host (golden) SRS: G1 tables to `device`, G2 rows kept
-        as host lists."""
+        """Upload a host (golden) SRS: G1 tables to `device` (None: the
+        card), G2 rows kept as host lists."""
+        device = resolve(device)
 
         def rows(neg, pos, hole_at_zero):
             return list(reversed(neg)) + ([None] if hole_at_zero else []) + list(pos)

@@ -55,6 +55,10 @@ def test_mont_mul_kernel_equals_plain(dev, spec):
     assert mont_mul.launches == before + 1
     assert torch.equal(got, mont_mul.mont_mul_plain(a, b, spec))
     assert torch.equal(got.cpu(), mont_mul.mont_mul_plain(a.cpu(), b.cpu(), spec))
+    # an operand whose data starts 8 bytes past a 16-byte boundary
+    odd = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+    assert odd.data_ptr() % 16 == 8
+    assert torch.equal(mont_mul.mont_mul(odd, b, spec), got)
     std = limb.from_mont(a, spec)
     assert torch.equal(std, mont_mul.mont_mul_plain(a, spec.raw_one(dev), spec))
     assert spec.to_int(std, mont=False).tolist() == spec.to_int(a).tolist()
@@ -80,24 +84,30 @@ def _points(rng, n, dev):
     )
 
 
-@pytest.mark.parametrize("batch", [None, 3], ids=["single", "batched"])
+@pytest.mark.parametrize("batch", [None, 3, 64], ids=["single", "batched", "batched64"])
 def test_bucket_acc_kernel_equals_plain(dev, batch):
-    """K=8 lanes of T=5 points, W=3 windows, c=4 (9 buckets), infinities
-    and digits of both signs: the whole bucket grid, bit for bit."""
-    K, T, W, nb = 8, 5, 3, 9
-    flat = _points(random.Random(32), K * T, dev)
-    pts = Affine(flat.x.reshape(K, T, -1), flat.y.reshape(K, T, -1), flat.inf.reshape(K, T))
+    """Bucket sums over N=40 points (two at infinity), W=3 windows, c=4 (9
+    buckets), digits of both signs and zeros, at the device's chunk count
+    and with chunks of 3 entries (buckets cut across chunks): the whole
+    (M, W, B) output, bit for bit, against bucket_sums_plain on the same plan."""
+    N, W, nb = 40, 3, 9
+    pts = _points(random.Random(32), N, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(33)
-    shape = (K, T, W) if batch is None else (batch, K, T, W)
+    shape = (N, W) if batch is None else (batch, N, W)
     digits = torch.randint(-(nb - 1), nb, shape, generator=gen, device=dev)
-    before = bucket_acc.launches
-    got = bucket_acc.accumulate(pts, digits, nb)
-    assert bucket_acc.launches == before + 1
-    want = bucket_acc.accumulate_plain(pts, digits, nb)
-    assert got.x.shape == shape[:-3] + (K, W, nb, FQ.nlimbs)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for chunks in (None, -(-int((digits != 0).sum()) // 3)):
+        plan = bucket_acc.make_plan(pts.inf, digits, nb, chunks)
+        before = bucket_acc.launches
+        got = bucket_acc.bucket_sums(pts, plan)
+        assert bucket_acc.launches == before + 1
+        want = bucket_acc.bucket_sums_plain(pts, plan)
+        assert got.x.shape == (batch or 1, W, nb, FQ.nlimbs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        cpu = bucket_acc.bucket_sums_plain(Affine(*(a.cpu() for a in pts)), plan.to("cpu"))
+        for g, w in zip(got, cpu):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_pinned_example2_proof_on_the_card(dev):

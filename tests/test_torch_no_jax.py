@@ -30,12 +30,12 @@ vec = json.load(open("tests/vectors/pinned_v1.json"))["example2"]
 r = vec["rnd"]
 rnd = gp.Randomness(cns=r["cns"], y=r["y"], z=r["z"], ys=r["ys"], zs=r["zs"], u=r["u"], v=r["v"])
 circuit, assignment = example_circuit_2(x=1, z=2)
-srs = SRS.from_host(gp.SRS.new(vec["d"], x=vec["x"], alpha=vec["alpha"]))
-dc = DeviceCircuit.from_host(circuit)
-proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment), dc, rnd)
+srs = SRS.from_host(gp.SRS.new(vec["d"], x=vec["x"], alpha=vec["alpha"]), device="cpu")
+dc = DeviceCircuit.from_host(circuit, device="cpu")
+proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment, device="cpu"), dc, rnd)
 assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
 assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
-assert example.main(["--n", "6", "--q", "2", "--seed", "3"]) == 0
+assert example.main(["--device", "cpu", "--n", "6", "--q", "2", "--seed", "3"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sonic_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")

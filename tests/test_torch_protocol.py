@@ -70,9 +70,10 @@ def _verify_and_tamper(srs, dc, proof, oracle):
 def test_pinned_vectors(name):
     vec = VECTORS[name]
     circuit, assignment = MAKERS[name](x=1, z=2)
-    srs = SRS.from_host(_host_srs(name))
-    dc = DeviceCircuit.from_host(circuit)
-    proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment), dc, _randomness(vec))
+    srs = SRS.from_host(_host_srs(name), device="cpu")
+    dc = DeviceCircuit.from_host(circuit, device="cpu")
+    da = DeviceAssignment.from_host(assignment, device="cpu")
+    proof, oracle = protocol.prove(srs, da, dc, _randomness(vec))
     assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
     _verify_and_tamper(srs, dc, proof, oracle)
 
@@ -105,11 +106,12 @@ def test_random_circuit_in_the_ntt_branch(monkeypatch):
     )
     want, _ = jgp.prove(host, assignment, circuit, jgp.Randomness(**vars(rnd)))
 
-    srs = SRS.from_host(host)
+    srs = SRS.from_host(host, device="cpu")
     for key, e in ((("x", n - d), pow(x, n - d, P)), (("x", 0), 1), (("ax", 0), alpha),
                    (("ax", 1), alpha * x % P)):
         srs.h_rows[key] = golden.g2_mul(golden.G2_GEN, e)
-    dc, da = DeviceCircuit.from_host(circuit), DeviceAssignment.from_host(assignment)
+    dc = DeviceCircuit.from_host(circuit, device="cpu")
+    da = DeviceAssignment.from_host(assignment, device="cpu")
     got, oracle = protocol.prove(srs, da, dc, rnd)
     assert serial.proof_to_bytes(got) == jserial.proof_to_bytes(want)
     _verify_and_tamper(srs, dc, got, oracle)
@@ -137,18 +139,20 @@ def test_breakdown_phase_timers_leave_the_proof_unchanged():
 
     vec = VECTORS["example2"]
     circuit, assignment = example_circuit_2(x=1, z=2)
-    srs = SRS.from_host(_host_srs("example2"))
-    dc, da = DeviceCircuit.from_host(circuit), DeviceAssignment.from_host(assignment)
+    srs = SRS.from_host(_host_srs("example2"), device="cpu")
+    dc = DeviceCircuit.from_host(circuit, device="cpu")
+    da = DeviceAssignment.from_host(assignment, device="cpu")
     cpu = torch.device("cpu")
     with breakdown.phase_timers(cpu) as acc:
         proof, _ = protocol.prove(srs, da, dc, _randomness(vec))
     assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
     assert acc["commit r, t (zkP_1/2)"][1] == 2 and acc["3 openings (zkP_3)"][1] == 3
     assert acc["window combine, all MSMs"][1] == 1
-    assert acc["in MSMs: scan (kernel 2)"][1] == 11  # m = 5: 5 + 6 MSM calls
+    assert acc["in MSMs: bucket sums (kernel 2)"][1] == 11  # m = 5: 5 + 6 MSM calls
+    assert acc["in MSMs: bucket plan"][1] == 11
     assert set(acc) == {label for _, _, label in breakdown.PHASES}
     assert protocol.commit_poly is commitment.commit_poly
-    assert pippenger.accumulate is bucket_acc.accumulate
+    assert pippenger.bucket_sums is bucket_acc.bucket_sums
     # the profiler pass, on a small host read (the CPU has no device events)
     one = FR.from_int([3, 4])
     wall, events, busy, rows = breakdown.device_profile(lambda: FR.to_int(one), cpu)

@@ -44,9 +44,10 @@ def test_example2_matches_sonic_tpu_prove():
     def table(t):
         return np.asarray(t.x), np.asarray(t.y), np.asarray(t.inf)
 
-    srs = convert.srs(d, table(jsrs.g_x), table(jsrs.g_ax), table(jsrs.h_x), table(jsrs.h_ax))
-    dc = convert.circuit(*(np.asarray(a) for a in (jc.wL, jc.wR, jc.wO, jc.cs)))
-    da = convert.assignment(*(np.asarray(a) for a in (ja.aL, ja.aR, ja.aO)))
+    srs = convert.srs(d, table(jsrs.g_x), table(jsrs.g_ax), table(jsrs.h_x), table(jsrs.h_ax),
+                      device="cpu")
+    dc = convert.circuit(*(np.asarray(a) for a in (jc.wL, jc.wR, jc.wO, jc.cs)), device="cpu")
+    da = convert.assignment(*(np.asarray(a) for a in (ja.aL, ja.aR, ja.aO)), device="cpu")
     got, oracle = protocol.prove(srs, da, dc, gp.Randomness(**vars(rnd)))
     assert serial.proof_to_bytes(got) == jserial.proof_to_bytes(want)
     assert protocol.verify(srs, dc, got, oracle.y, oracle.z, oracle.yzs) is True

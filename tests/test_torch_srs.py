@@ -3,12 +3,15 @@ sonic_tpu.srs. G1 tables are compared limb for limb (both store affine
 rows), G2 rows as host points. All comparisons are exact.
 """
 import numpy as np
+import pytest
 import torch
 
 from sonic_tpu.fields.limb import FQ as JFQ
 from sonic_tpu.srs import SRS as JSRS
 from sonic_tpu_torch import convert
 from sonic_tpu_torch import golden_protocol as gp
+from sonic_tpu_torch.circuit import example_circuit_1
+from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
 from sonic_tpu_torch.fields.limb import FQ
 from sonic_tpu_torch.srs import SRS
 
@@ -27,7 +30,7 @@ def test_srs_from_host_and_convert_match_sonic_tpu():
     d, x, alpha = 6, 987654321, 123456789
     host = gp.SRS.new(d, x, alpha)
     want = JSRS.from_host(host)
-    got = SRS.from_host(host)
+    got = SRS.from_host(host, device="cpu")
     assert got.d == want.d == d
     _assert_table(want.g_x, got.g_x)
     _assert_table(want.g_ax, got.g_ax)
@@ -37,7 +40,8 @@ def test_srs_from_host_and_convert_match_sonic_tpu():
     def table(t):
         return np.asarray(t.x), np.asarray(t.y), np.asarray(t.inf)
 
-    conv = convert.srs(d, table(want.g_x), table(want.g_ax), table(want.h_x), table(want.h_ax))
+    conv = convert.srs(d, table(want.g_x), table(want.g_ax), table(want.h_x), table(want.h_ax),
+                       device="cpu")
     _assert_table(want.g_x, conv.g_x)
     _assert_table(want.g_ax, conv.g_ax)
     for e in range(-d, d + 1):
@@ -49,7 +53,7 @@ def test_srs_from_host_and_convert_match_sonic_tpu():
 def test_srs_new_verifier_mode_matches_sonic_tpu():
     d, x, alpha = 40, 987654321, 123456789
     want = JSRS.new(d, x, alpha, h_mode="verifier", n_hints=[5])
-    got = SRS.new(d, x, alpha, h_mode="verifier", n_hints=[5])
+    got = SRS.new(d, x, alpha, h_mode="verifier", n_hints=[5], device="cpu")
     for jt, t in ((want.g_x, got.g_x), (want.g_ax, got.g_ax)):
         assert np.array_equal(np.asarray(jt.inf), t.inf.numpy())
         assert list(JFQ.to_int(jt.x)) == list(FQ.to_int(t.x))
@@ -59,3 +63,25 @@ def test_srs_new_verifier_mode_matches_sonic_tpu():
         assert got.h_x_at(e) == want.h_x_at(e)
     for e in (0, 1):
         assert got.h_ax_at(e) == want.h_ax_at(e)
+
+
+def test_constructors_default_to_the_card(monkeypatch):
+    """With no `device`, the public constructors put their tensors on the
+    card; without one they raise rather than hand back CPU tensors."""
+    host = gp.SRS.new(2, 987654321, 123456789)
+    circuit, assignment = example_circuit_1(x=1, z=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    limbs = np.zeros((1, 16), np.uint32)
+    for make in (
+        lambda: SRS.from_host(host),
+        lambda: SRS.new(2, 987654321, 123456789),
+        lambda: DeviceCircuit.from_host(circuit),
+        lambda: DeviceAssignment.from_host(assignment),
+        lambda: convert.srs(2, None, None, None, None),
+        lambda: convert.circuit(limbs, limbs, limbs, limbs),
+        lambda: convert.assignment(limbs, limbs, limbs),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert SRS.from_host(host, device="cpu").g_x.x.device.type == "cpu"
+    assert DeviceCircuit.from_host(circuit, device="cpu").wL.device.type == "cpu"
