@@ -31,6 +31,31 @@ torch.cuda.synchronize():
               then held, output for output, against bucket_sums_plain /
               mont_mul_plain on the same inputs; kernel 1 is timed at its
               most-launched shape.
+  6. full SRS SRS.new(h_mode="full") at d = 2^16 (all four tables on the
+              card, G2 over Fq2, fixed-base window tables), timed, with
+              each group's window table and fixed_base_mul timed: 64
+              random rows of each table equal to golden.g1_mul/g2_mul on
+              the host, 4,096 rows of each G1 table equal to the same
+              scalars through the double-and-add ladder, a save_srs /
+              load_srs round trip, and the pinned `srs_sha256` of
+              example1/example2 from SRS.new on the card; kernel 1's
+              launches, and its first launch of each operand shape held
+              against mont_mul_plain;
+  7. batch    prove_batch of B=64 random_circuit(n=1024, q=8) on phase 5's
+              SRS: one warm-up and three timed calls, the phase table of
+              one more (sonic_tpu_torch.breakdown), all 64 proofs verify
+              True and a tampered one False, proofs 0 and 63 byte-equal to
+              protocol.prove; both kernels' launch counts; its kernel-2
+              launches against bucket_sums_plain (the largest and the first
+              of each (M, W, B) shape always, the rest while a 120 s
+              budget lasts; the output says which) and the first kernel-1
+              launch of each operand shape against mont_mul_plain;
+  8. Fiat-Shamir  on example2's host SRS, fiat_shamir.prove_device byte-equal
+              to the host fiat_shamir.prove, verify True; on phase 5's
+              circuit, prove_device timed, equal to protocol.prove with the
+              Randomness of its own derived challenges, verify True;
+              its kernel-2 launches and the first kernel-1 launch of each
+              operand shape against the plain versions.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -38,6 +63,8 @@ additions (nonzero digits on finite points), 11 Fq products of 2 * 12^2
 word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
+Every path (phases 5-8) runs with both launch counters set to 0 just before
+it and read just after, and fails if a kernel it uses was never launched.
 Every comparison is exact (all values are integers); a failed one raises.
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -46,12 +73,14 @@ any result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -61,9 +90,82 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_CLOCK_PER_SM = 64  # 32-bit integer multiply-add, compute capability 9.0
 IMAD_PER_MIXED_ADD = 11 * 2 * 12 * 12 * 2
 
+DEVICE = "cuda"
+K1_N = 1 << 20  # phase 2: products per field
+MSM_N = 1 << 16  # phase 3: MSM points
+MAIN_N, MAIN_Q, PROVE_RUNS = 1024, 64, 3  # phase 5 (and 7's n, 8's circuit)
+SRS_D, SRS_ROWS_CHECKED, LADDER_ROWS = 1 << 16, 64, 4096  # phase 6
+BATCH_B, BATCH_Q = 64, 8  # phase 7
+PLAIN_BUDGET_S = 120.0  # phase 7: time for kernel 2 against bucket_sums_plain
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def srs_digest(srs) -> str:
+    """tests/test_vectors.py's SRS digest of a host (golden) SRS."""
+    from sonic_tpu_torch import serial
+
+    h = hashlib.sha256()
+    for tab in (srs.g_neg_x, srs.g_pos_x, srs.g_neg_ax, srs.g_pos_ax):
+        for p in tab:
+            h.update(serial.g1_to_bytes(p))
+    for tab in (srs.h_neg_x, srs.h_pos_x, srs.h_neg_ax, srs.h_pos_ax):
+        for p in tab:
+            h.update(serial.g2_to_bytes(p))
+    return h.hexdigest()
+
+
+class Path:
+    """Drives one path of the port: both launch counters are set to 0 on
+    entry and read on exit. It keeps the inputs of every kernel-2 launch
+    and of the first kernel-1 launch of each operand shape, and counts
+    kernel-1 launches by shape, so that the kernels can be held against
+    their plain versions afterwards."""
+
+    def __init__(self, name: str, uses=("mont_mul", "bucket_sums")):
+        self.name, self.uses = name, uses
+        self.sums, self.products, self.shape_count = [], {}, {}
+
+    def __enter__(self):
+        from sonic_tpu_torch.fields import mont_mul
+        from sonic_tpu_torch.msm import bucket_acc, pippenger
+
+        self._real = real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
+
+        def sums_keep(pts, plan):
+            self.sums.append((pts, plan))
+            return real_sums(pts, plan)
+
+        def mul_keep(a, b, spec):
+            key = (spec.name, tuple(a.shape), tuple(b.shape))
+            self.products.setdefault(key, (a, b, spec))
+            self.shape_count[key] = self.shape_count.get(key, 0) + 1
+            return real_mul(a, b, spec)
+
+        pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_keep
+        mont_mul.launches = bucket_acc.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from sonic_tpu_torch.fields import mont_mul
+        from sonic_tpu_torch.msm import bucket_acc, pippenger
+
+        self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches}
+        pippenger.bucket_sums, mont_mul.mont_mul = self._real
+        if exc[0] is None:
+            never = [k for k in self.uses if self.launches[k] == 0]
+            if never:
+                raise AssertionError(f"{self.name}: kernel(s) {never} never launched: {self.launches}")
+        return False
 
 
 def main() -> int:
@@ -73,23 +175,25 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
 
-    from sonic_tpu_torch import breakdown, golden, kernels, native, protocol, serial
+    from sonic_tpu_torch import breakdown, fiat_shamir, golden, kernels, native, protocol, serial
     from sonic_tpu_torch import golden_protocol as gp
     from sonic_tpu_torch.circuit import example_circuit_1, example_circuit_2, random_circuit
     from sonic_tpu_torch.constraints import (
         DeviceAssignment, DeviceCircuit, k_at_y, r_at_y, r_x1_poly, s_at_y,
     )
-    from sonic_tpu_torch.curve.group import Affine, g1
+    from sonic_tpu_torch.curve.group import Affine, g1, g2
     from sonic_tpu_torch.fields import limb, mont_mul
     from sonic_tpu_torch.fields.limb import FQ, FR
-    from sonic_tpu_torch.msm import bucket_acc, pippenger
+    from sonic_tpu_torch import srs as srs_module
+    from sonic_tpu_torch.msm import bucket_acc, fixed_base, pippenger
     from sonic_tpu_torch.poly import laurent
     from sonic_tpu_torch.srs import SRS
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev)
     gen.manual_seed(20240601)
+    paths = {}  # path name -> its kernel launches
 
     def timed(fn):
         sync()
@@ -114,12 +218,6 @@ def main() -> int:
         x = torch.randint(0, 1 << 16, (n, spec.nlimbs), generator=gen, device=dev)
         x[:, -1] = torch.randint(0, spec.mod_limbs[-1], (n,), generator=gen, device=dev)
         return x
-
-    def smi(query):
-        return subprocess.run(
-            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
 
     # -- set-up: builds ----------------------------------------------------------
     _, t_build = timed(kernels.build)
@@ -154,7 +252,7 @@ def main() -> int:
     # -- phase 2: kernel 1 ---------------------------------------------------------------
     k1 = {}
     for spec in (FR, FQ):
-        n = 1 << 20
+        n = K1_N
         edge = torch.tensor([[0] * spec.nlimbs, [1] + [0] * (spec.nlimbs - 1), list(spec.mod_limbs)],
                             dtype=torch.int64, device=dev)
         edge[2, 0] -= 1  # N - 1 (the modulus is odd)
@@ -175,7 +273,7 @@ def main() -> int:
             f"byte bound {bound:.4f} ms ({100 * bound / ms:.1f} % of it)")
 
     # -- phase 3: kernel 2 ---------------------------------------------------------------
-    N = 1 << 16
+    N = MSM_N
     base = g1.from_affine(g1.generator(dev))
     (aff, t_pts) = timed(lambda: g1.to_affine(g1.scalar_mul(base, rand_canonical(FR, N))))
     inf = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -203,7 +301,7 @@ def main() -> int:
             f"multiply-add bound {bound:.3f} ms ({100 * bound / ms:.1f} % of it)")
         return err, ms, plain_ms, bound
 
-    M, Nr, c = 2, 1024, 8
+    M, Nr, c = 2, min(1024, N), 8
     W, nb = 256 // c + 1, (1 << (c - 1)) + 1
     small = Affine(points.x[:Nr], points.y[:Nr], points.inf[:Nr])
     digits = torch.randint(-(nb - 1), nb, (M, Nr, W), generator=gen, device=dev)
@@ -228,9 +326,7 @@ def main() -> int:
 
     res, t_msm = timed(lambda: g1.to_affine(pippenger.msm(points, scalars)))
     got = None if bool(res.inf) else (FQ.to_int(res.x), FQ.to_int(res.y))
-    xs, ys = FQ.to_int(points.x), FQ.to_int(points.y)
-    infs = points.inf.tolist()
-    host_pts = [None if infs[i] else (int(xs[i]), int(ys[i])) for i in range(N)]
+    host_pts = g1.to_host(points)
     host_sc = [int(v) for v in FR.to_int(scalars, mont=False)]
     if not all(golden.g1_is_on_curve(p) for p in host_pts[:64] if p is not None):
         raise AssertionError("generated points are not on the curve")
@@ -268,7 +364,7 @@ def main() -> int:
             f"(prove {t_prove:.2f} s)")
 
     # -- phase 5: main path, BASELINE config 2 ------------------------------------------------
-    n, q = 1024, 64
+    n, q = MAIN_N, MAIN_Q
     rng = random.Random(42)
     circuit, assignment = random_circuit(rng, n=n, q=q)
     d = 7 * n + 20
@@ -277,48 +373,25 @@ def main() -> int:
     (dc, da), t_up = timed(lambda: (DeviceCircuit.from_host(circuit, device=dev),
                                     DeviceAssignment.from_host(assignment, device=dev)))
     rnd = gp.Randomness.generate(rng, m=q)
-    log(f"phase 5 main path: n={n} q={q} d={d}; SRS.new (verifier mode, G1 tables on the card) "
-        f"{t_srs:.2f} s, circuit upload {t_up:.2f} s")
+    log(f"phase 5 main path: n={n} q={q} d={d}; SRS.new (verifier mode, G1 tables on the card, "
+        f"fixed-base) {t_srs:.2f} s, circuit upload {t_up:.2f} s")
 
-    # Keep the inputs of every kernel-2 launch and of the first kernel-1
-    # launch of each operand shape, to hold them against the plain versions
-    # below; count kernel-1 launches by shape.
-    sums_kept, products, shape_count = [], {}, {}
-    real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
-
-    def sums_keep(pts, plan):
-        sums_kept.append((pts, plan))
-        return real_sums(pts, plan)
-
-    def mul_keep(a, b, spec):
-        key = (spec.name, tuple(a.shape), tuple(b.shape))
-        products.setdefault(key, (a, b, spec))
-        shape_count[key] = shape_count.get(key, 0) + 1
-        return real_mul(a, b, spec)
-
-    pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_keep
-    mont_mul.launches = 0
-    bucket_acc.launches = 0
-    try:
+    with Path("prove + verify") as main_path:
         (proof, oracle), t_warm = timed(lambda: protocol.prove(srs, da, dc, rnd))
         ok, t_verify = timed(lambda: protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs))
-    finally:
-        pippenger.bucket_sums, mont_mul.mont_mul = real_sums, real_mul
-    launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches}
+    paths["prove + verify"] = main_path.launches
     log(f"phase 5 prove (warm-up) {t_warm:.2f} s, verify {t_verify:.3f} s; "
-        f"kernel launches in prove + verify: {launches}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+        f"kernel launches in prove + verify: {main_path.launches}")
     if not ok:
         raise AssertionError("main path: verify returned False")
     backend = "native C++ (sonic_tpu_torch/_build)" if native.get_lib() is not None else "pure Python"
     times = []
-    for _ in range(3):
+    for _ in range(PROVE_RUNS):
         (proof2, _), t = timed(lambda: protocol.prove(srs, da, dc, rnd))
         times.append(t)
     if serial.proof_to_bytes(proof2) != serial.proof_to_bytes(proof):
         raise AssertionError("main path: repeated proofs differ")
-    log(f"phase 5 prove x3: median {statistics.median(times):.3f} s, min {min(times):.3f} s "
+    log(f"phase 5 prove x{PROVE_RUNS}: median {statistics.median(times):.3f} s, min {min(times):.3f} s "
         f"({', '.join(f'{t:.3f}' for t in times)}); verify {t_verify:.3f} s via {backend} pairing")
 
     with breakdown.phase_timers(dev) as acc:
@@ -330,16 +403,11 @@ def main() -> int:
         log(line)
 
     # pr_r and pr_t recomputed on the host: native MSM over the SRS rows
-    def host_rows(tab, start, length):
-        sl = slice(start, start + length)
-        hx, hy = FQ.to_int(tab.x[sl]), FQ.to_int(tab.y[sl])
-        hinf = tab.inf[sl].tolist()
-        return [None if hinf[i] else (int(hx[i]), int(hy[i])) for i in range(length)]
-
     def host_commit(maxm, poly):
         lo = poly.offset + d - maxm
-        coeffs = [int(v) for v in FR.to_int(poly.coeffs)]
-        return native.g1_msm_native(host_rows(srs.g_ax, lo + d, poly.length), coeffs)
+        sl = slice(lo + d, lo + d + poly.length)
+        rows = g1.to_host(Affine(srs.g_ax.x[sl], srs.g_ax.y[sl], srs.g_ax.inf[sl]))
+        return native.g1_msm_native(rows, [int(v) for v in FR.to_int(poly.coeffs)])
 
     cns = FR.from_int(rnd.cns, device=dev)
     y_m = FR.from_int(rnd.y, device=dev)
@@ -356,30 +424,36 @@ def main() -> int:
         raise AssertionError("main path: tampered proof verified")
     log("phase 5 checks: verify True, tampered False, pr_r and pr_t equal to native host MSMs")
 
-    # the kernels at the main path's own shapes, against their plain versions
+    # the kernels at a path's own shapes, against their plain versions
     k1_err = [k1["Fr"][0], k1["Fq"][0]]
-    for a, b, spec in products.values():
-        got, want = mont_mul.mont_mul(a, b, spec), mont_mul.mont_mul_plain(a, b, spec)
-        k1_err.append(int((got - want).abs().max()) if got.numel() else 0)
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel 1 {spec.name} {tuple(a.shape)} x {tuple(b.shape)}: "
-                                 "differs from mont_mul_plain")
-    log(f"phase 5 kernel 1: the first launch of each of {len(products)} operand shapes of the "
-        f"counted run equal to mont_mul_plain (max abs err {max(k1_err[2:], default=0)})")
-    top = max(shape_count, key=shape_count.get)
-    a, b, spec = products[top]
+
+    def check_products(path, label):
+        errs = []
+        for a, b, spec in path.products.values():
+            got, want = mont_mul.mont_mul(a, b, spec), mont_mul.mont_mul_plain(a, b, spec)
+            errs.append(int((got - want).abs().max()) if got.numel() else 0)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} kernel 1 {spec.name} {tuple(a.shape)} x "
+                                     f"{tuple(b.shape)}: differs from mont_mul_plain")
+        k1_err.extend(errs)
+        log(f"{label} kernel 1: the first launch of each of {len(path.products)} operand shapes "
+            f"of the counted run equal to mont_mul_plain (max abs err {max(errs, default=0)})")
+
+    check_products(main_path, "phase 5")
+    top = max(main_path.shape_count, key=main_path.shape_count.get)
+    a, b, spec = main_path.products[top]
     nout = torch.broadcast_shapes(a.shape, b.shape).numel()
     top_ms = event_ms(lambda: mont_mul.mont_mul(a, b, spec), 200)
     top_plain = event_ms(lambda: mont_mul.mont_mul_plain(a, b, spec), 20)
     top_bound = k1_bound_ms(a, b, nout)
     log(f"phase 5 kernel 1 most-launched shape {spec.name} {tuple(a.shape)} x {tuple(b.shape)} "
-        f"({shape_count[top]} of {sum(shape_count.values())} launches): kernel {top_ms:.4f} ms, "
-        f"plain {top_plain:.3f} ms, byte bound {top_bound:.5f} ms")
+        f"({main_path.shape_count[top]} of {sum(main_path.shape_count.values())} launches): "
+        f"kernel {top_ms:.4f} ms, plain {top_plain:.3f} ms, byte bound {top_bound:.5f} ms")
 
-    log(f"phase 5 kernel 2: the {len(sums_kept)} bucket-sums launches of the counted run:")
+    log(f"phase 5 kernel 2: the {len(main_path.sums)} bucket-sums launches of the counted run:")
     k2_main = None
-    largest = max(p.entries for _, p in sums_kept)
-    for i, (pts, plan) in enumerate(sums_kept):
+    largest = max(p.entries for _, p in main_path.sums)
+    for i, (pts, plan) in enumerate(main_path.sums):
         label = f"launch {i} {plan.shape} (M, W, B) over N={plan.npoints}"
         # time the first launch of the largest plan: the helper's batched one
         time_it = k2_main is None and plan.entries == largest
@@ -387,19 +461,224 @@ def main() -> int:
         k2_err.append(err)
         if time_it:
             k2_main = (ms, plain_ms, bound)
+    del main_path
+
+    # -- phase 6: full SRS at d = 2^16 ----------------------------------------------------------
+    srng = random.Random(6)
+    sx, salpha = srng.randrange(2, gp.P), srng.randrange(2, gp.P)
+    # a synchronizing timer around each group's window table and
+    # fixed_base_mul inside SRS.new (the G1 table is cached from phase 5)
+    parts = {}
+
+    def fixed_base_timed(group, scalars):
+        _, parts[f"{group.name} window table"] = timed(
+            lambda: fixed_base.table(group, fixed_base.DEFAULT_C, scalars.device))
+        out, parts[f"{group.name} fixed_base_mul ({scalars.shape[0]} points)"] = timed(
+            lambda: fixed_base.fixed_base_mul(group, scalars))
+        return out
+
+    srs_module.fixed_base_mul = fixed_base_timed
+    try:
+        with Path("SRS.new full", uses=("mont_mul",)) as srs_path:
+            full, t_full = timed(lambda: SRS.new(SRS_D, sx, salpha, h_mode="full", device=dev))
+    finally:
+        srs_module.fixed_base_mul = fixed_base.fixed_base_mul
+    paths["SRS.new full"] = srs_path.launches
+    rows = 2 * SRS_D + 1
+    log(f"phase 6 full SRS: SRS.new(h_mode='full') d={SRS_D} ({rows} rows a table) {t_full:.2f} s; "
+        f"kernel launches: {srs_path.launches}; of it "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + f", the rest (powers of x, from_mont, two to_affine) {t_full - sum(parts.values()):.3f} s")
+
+    def scalar(table, i):
+        """The exponent of row i (e = i - d) of a table, as an int mod P."""
+        e = i - SRS_D
+        s = pow(sx, e, gp.P)
+        if table in ("g_ax", "h_ax"):
+            s = salpha * s % gp.P
+        return 0 if table == "g_ax" and e == 0 else s
+
+    def table_rows(tab, idx):
+        it = torch.tensor(idx, device=dev)
+        return Affine(tab.x[it], tab.y[it], tab.inf[it])
+
+    t0 = time.perf_counter()
+    idx = sorted(srng.sample(range(rows), SRS_ROWS_CHECKED - 1) + [SRS_D])  # with e = 0
+    for tname, grp, host_mul, hgen in (("g_x", g1, golden.g1_mul, golden.G1_GEN),
+                                       ("g_ax", g1, golden.g1_mul, golden.G1_GEN),
+                                       ("h_x", g2, golden.g2_mul, golden.G2_GEN),
+                                       ("h_ax", g2, golden.g2_mul, golden.G2_GEN)):
+        got = grp.to_host(table_rows(getattr(full, tname), idx))
+        if got != [host_mul(hgen, scalar(tname, i)) for i in idx]:
+            raise AssertionError(f"phase 6: {tname} rows differ from golden scalar multiples")
+    log(f"phase 6 checks: {len(idx)} rows of each of the 4 tables equal to golden.g1_mul/g2_mul "
+        f"on the host ({time.perf_counter() - t0:.1f} s)")
+
+    lidx = sorted(srng.sample(range(rows), LADDER_ROWS))
+    lsc = FR.from_int([scalar(t, i) for t in ("g_x", "g_ax") for i in lidx], mont=False, device=dev)
+    (ladder, t_ladder) = timed(lambda: g1.to_affine(g1.scalar_mul(base, lsc)))
+    for k, tname in enumerate(("g_x", "g_ax")):
+        want_rows = table_rows(getattr(full, tname), lidx)
+        got_rows = [a[k * LADDER_ROWS:(k + 1) * LADDER_ROWS] for a in ladder]
+        if not all(torch.equal(g, w) for g, w in zip(got_rows, want_rows)):
+            raise AssertionError(f"phase 6: {tname} differs from the double-and-add ladder")
+    log(f"phase 6 checks: {LADDER_ROWS} rows of g_x and of g_ax equal, in affine form, to the "
+        f"same scalars through g1.scalar_mul ({t_ladder:.2f} s on the card)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "srs.npz")
+        _, t_save = timed(lambda: serial.save_srs(path, full))
+        size = os.path.getsize(path)
+        loaded, t_load = timed(lambda: serial.load_srs(path, device=dev))
+    for tname in ("g_x", "g_ax", "h_x", "h_ax"):
+        if not all(torch.equal(a, b) for a, b in zip(getattr(full, tname), getattr(loaded, tname))):
+            raise AssertionError(f"phase 6: {tname} differs after save_srs / load_srs")
+    log(f"phase 6 checkpoint: save_srs {t_save:.2f} s ({size / 1e6:.1f} MB), load_srs "
+        f"{t_load:.2f} s, all four tables equal")
+    del loaded, ladder
+
+    for vname in ("example1", "example2"):
+        vec = vectors[vname]
+        vsrs, t_v = timed(lambda: SRS.new(vec["d"], vec["x"], vec["alpha"], h_mode="full", device=dev))
+        if srs_digest(vsrs.to_host()) != vec["srs_sha256"]:
+            raise AssertionError(f"phase 6: {vname} SRS digest differs from pinned_v1.json")
+        log(f"phase 6 {vname}: SRS.new(h_mode='full') d={vec['d']} on the card ({t_v:.2f} s) "
+            "gives the pinned srs_sha256")
+    check_products(srs_path, "phase 6")
+    del full, srs_path
+
+    # -- phase 7: batch proving, BASELINE config 5 at n = 2^10 ------------------------------------
+    brng = random.Random(7)
+    B, bq = BATCH_B, BATCH_Q
+    bpairs = [random_circuit(brng, n=n, q=bq) for _ in range(B)]
+    brnds = [gp.Randomness.generate(brng, m=bq) for _ in range(B)]
+    (bdcs, bdas), t_bup = timed(lambda: (
+        [DeviceCircuit.from_host(c_, device=dev) for c_, _ in bpairs],
+        [DeviceAssignment.from_host(a_, device=dev) for _, a_ in bpairs]))
+    log(f"phase 7 batch: B={B} random circuits n={n} q={bq} on phase 5's SRS (d={d}); "
+        f"upload {t_bup:.2f} s")
+    with Path("prove_batch") as batch_path:
+        batch, t_bwarm = timed(lambda: protocol.prove_batch(srs, bdas, bdcs, brnds))
+    paths["prove_batch"] = batch_path.launches
+    log(f"phase 7 prove_batch (warm-up) {t_bwarm:.2f} s; kernel launches: {batch_path.launches}")
+    btimes = []
+    for _ in range(PROVE_RUNS):
+        batch2, t = timed(lambda: protocol.prove_batch(srs, bdas, bdcs, brnds))
+        btimes.append(t)
+    bbytes = [serial.proof_to_bytes(p) for p, _ in batch]
+    if [serial.proof_to_bytes(p) for p, _ in batch2] != bbytes:
+        raise AssertionError("phase 7: repeated batches differ")
+    del batch2
+    log(f"phase 7 prove_batch x{PROVE_RUNS}: median {statistics.median(btimes):.3f} s, "
+        f"min {min(btimes):.3f} s ({', '.join(f'{t:.3f}' for t in btimes)}); "
+        f"{B / statistics.median(btimes):.2f} proofs/s at the median")
+    with breakdown.phase_timers(dev, breakdown.PHASES + breakdown.BATCH_PHASES) as acc:
+        batch3, t_bphases = timed(lambda: protocol.prove_batch(srs, bdas, bdcs, brnds))
+    if [serial.proof_to_bytes(p) for p, _ in batch3] != bbytes:
+        raise AssertionError("phase 7: the batch under phase timers differs")
+    del batch3
+    log(f"phase 7 phase breakdown of one prove_batch (sonic_tpu_torch.breakdown timers), "
+        f"{t_bphases:.3f} s:")
+    for line in breakdown.phase_table(acc):
+        log(line)
+    t0 = time.perf_counter()
+    for b, (p, o) in enumerate(batch):
+        if not protocol.verify(srs, bdcs[b], p, o.y, o.z, o.yzs):
+            raise AssertionError(f"phase 7: proof {b} of the batch does not verify")
+    t_bver = time.perf_counter() - t0
+    bad = B // 2
+    p, o = batch[bad]
+    p.pr_b = (p.pr_b + 1) % gp.P
+    if protocol.verify(srs, bdcs[bad], p, o.y, o.z, o.yzs):
+        raise AssertionError(f"phase 7: tampered proof {bad} verified")
+    for b in (0, B - 1):
+        single, _ = protocol.prove(srs, bdas[b], bdcs[b], brnds[b])
+        if serial.proof_to_bytes(single) != bbytes[b]:
+            raise AssertionError(f"phase 7: proof {b} differs from protocol.prove")
+    log(f"phase 7 checks: all {B} proofs verify True ({t_bver:.2f} s), tampered proof {bad} False, "
+        f"proofs 0 and {B - 1} byte-equal to protocol.prove")
+
+    check_products(batch_path, "phase 7")
+    sums = list(enumerate(batch_path.sums))
+    largest = max(sums, key=lambda s: s[1][1].entries)[0]
+    firsts = {}
+    for i, (_, plan) in sums:
+        firsts.setdefault(plan.shape, i)
+    must = {largest, *firsts.values()}
+    order = sorted(must) + [i for i, _ in sums if i not in must]
+    t0 = time.perf_counter()
+    checked = []
+    for i in order:
+        if i not in must and time.perf_counter() - t0 > PLAIN_BUDGET_S:
+            break
+        pts, plan = batch_path.sums[i]
+        err = check_sums(pts, plan, f"launch {i} {plan.shape} (M, W, B) over N={plan.npoints}",
+                         time_it=i == largest)
+        k2_err.append(err[0])
+        if i == largest:
+            k2_batch = err[1:]
+        checked.append(i)
+    which = ("every launch" if len(checked) == len(sums) else
+             f"the largest (launch {largest}) and the first of each (M, W, B) shape, then launches "
+             f"in order until the {PLAIN_BUDGET_S:.0f} s budget ran out")
+    log(f"phase 7 kernel 2: {len(checked)} of the batch's {len(sums)} bucket-sums launches equal "
+        f"to bucket_sums_plain ({which}: launches {sorted(checked)}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del batch_path, batch
+
+    # -- phase 8: Fiat-Shamir device prover -------------------------------------------------------
+    vec = vectors["example2"]
+    circuit2, assignment2 = example_circuit_2(x=1, z=2)
+    host2 = gp.SRS.new(vec["d"], x=vec["x"], alpha=vec["alpha"])
+    blinding = [srng.randrange(1, gp.P) for _ in range(4)]
+    nizk = fiat_shamir.prove_device(SRS.from_host(host2, device=dev),
+                                    DeviceAssignment.from_host(assignment2, device=dev),
+                                    DeviceCircuit.from_host(circuit2, device=dev), blinding)
+    want = fiat_shamir.prove(host2, assignment2, circuit2, blinding)
+    if serial.proof_to_bytes(nizk.proof) != serial.proof_to_bytes(want.proof) or nizk != want:
+        raise AssertionError("phase 8: prove_device on example2 differs from the host fiat_shamir.prove")
+    if not fiat_shamir.verify(host2, circuit2, nizk):
+        raise AssertionError("phase 8: fiat_shamir.verify returned False on example2")
+    log("phase 8 example2: prove_device byte-equal to the host fiat_shamir.prove, verify True")
+
+    with Path("fiat_shamir.prove_device") as fs_path:
+        nizk, t_fs = timed(lambda: fiat_shamir.prove_device(srs, da, dc, blinding))
+    paths["fiat_shamir.prove_device"] = fs_path.launches
+    hsc = nizk.proof.pr_hsc
+    frnd = gp.Randomness(cns=blinding, y=nizk.y, z=nizk.z, ys=[y_ for y_, _ in nizk.yzs],
+                         zs=[z_ for _, z_ in nizk.yzs], u=hsc.hsc_u, v=hsc.hsc_v)
+    fproof, _ = protocol.prove(srs, da, dc, frnd)
+    if serial.proof_to_bytes(fproof) != serial.proof_to_bytes(nizk.proof):
+        raise AssertionError("phase 8: prove_device differs from protocol.prove at its challenges")
+    if not protocol.verify(srs, dc, nizk.proof, nizk.y, nizk.z, nizk.yzs):
+        raise AssertionError("phase 8: protocol.verify returned False on the FS proof")
+    log(f"phase 8 n={n} q={q}: prove_device {t_fs:.3f} s, equal to protocol.prove with its "
+        f"derived challenges, verify True; kernel launches: {fs_path.launches}")
+    check_products(fs_path, "phase 8")
+    for i, (pts, plan) in enumerate(fs_path.sums):
+        k2_err.append(check_sums(pts, plan, f"phase 8 launch {i} {plan.shape} (M, W, B) over "
+                                            f"N={plan.npoints}", time_it=False)[0])
+    del fs_path
+
+    def total(kernel):
+        return sum(p[kernel] for p in paths.values())
 
     kernels_line = {"kernels": [
         {"name": "mont_mul", "route": "cuda", "source": "sonic_tpu_torch/csrc/mont_mul.cu",
-         "replaces": "sonic_tpu/fields/pallas_mul.py:147", "launches": launches["mont_mul"],
+         "replaces": "sonic_tpu/fields/pallas_mul.py:147", "launches": total("mont_mul"),
+         "launches_by_path": {k: v["mont_mul"] for k, v in paths.items()},
          "max_abs_err": max(k1_err), "ms": k1["Fq"][1], "plain_ms": k1["Fq"][2],
          "bound_ms": k1["Fq"][3], "bound_by": "bytes", "library_ms": None},
         {"name": "bucket_sums", "route": "cuda", "source": "sonic_tpu_torch/csrc/bucket_acc.cu",
-         "replaces": "sonic_tpu/msm/pallas_acc.py:136", "launches": launches["bucket_sums"],
+         "replaces": "sonic_tpu/msm/pallas_acc.py:136", "launches": total("bucket_sums"),
+         "launches_by_path": {k: v["bucket_sums"] for k, v in paths.items()},
          "max_abs_err": max(k2_err), "ms": k2_main[0], "plain_ms": k2_main[1],
          "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None},
     ]}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
-        f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f})")
+        f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "
+        f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f})")
+    log(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -6,12 +6,15 @@ the reference. The module layout mirrors it, so each module's counterpart
 has the same name. The package imports torch, numpy and the standard
 library, never jax and never sonic_tpu.
 
-Public API (the reference's main path):
+Public API (the reference's exports):
 
-    SRS.from_host(host_srs, device=) / SRS.new(d, x, alpha, h_mode="verifier", ...)
+    SRS.new(d, x, alpha, h_mode="full", device=) / SRS.from_host(host_srs, device=)
     DeviceCircuit.from_host(circuit, device=), DeviceAssignment.from_host(a, device=)
     prove(srs, assignment, circuit, rnd) -> (Proof, RndOracle)
+    prove_batch(srs, assignments, circuits, rnds) -> [(Proof, RndOracle)]
     verify(srs, circuit, proof, y, z, yzs) -> bool
+    hsc_prove / hsc_verify, commit_poly / open_poly / pcv
+    fiat_shamir.prove_device, serial.save_srs / load_srs
 
 `device=None` is the CUDA card; without one the constructors raise. Pass
 `device="cpu"` to run on the CPU.
@@ -31,7 +34,13 @@ __all__ = [
     "Randomness",
     "HscProof",
     "prove",
+    "prove_batch",
     "verify",
+    "hsc_prove",
+    "hsc_verify",
+    "commit_poly",
+    "open_poly",
+    "pcv",
     "SRS",
 ]
 
@@ -46,7 +55,13 @@ _WHERE = {
     "Randomness": "golden_protocol",
     "HscProof": "golden_protocol",
     "prove": "protocol",
+    "prove_batch": "protocol",
     "verify": "protocol",
+    "hsc_prove": "signature",
+    "hsc_verify": "signature",
+    "commit_poly": "commitment",
+    "open_poly": "commitment",
+    "pcv": "commitment",
     "SRS": "srs",
 }
 

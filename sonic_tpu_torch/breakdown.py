@@ -1,4 +1,5 @@
 """Where one prove spends its time: phase timers and a device profile.
+With BATCH_PHASES, the timers cover `prove_batch` too.
 
     python -m sonic_tpu_torch.breakdown [--device cuda] [--n 1024] [--q 64]
                                         [--seed 42] [--reps 3] [--profiler]
@@ -60,6 +61,19 @@ PHASES = [
     (signature, "s_at_u_of_y", "in helper: s(u, Y) build"),
 ]
 
+# prove_batch's own phase functions (the helper's B*m instances run in the
+# same calls); PHASES' MSM rows time what runs inside them
+BATCH_PHASES = [
+    (protocol, "r_x1_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
+    (protocol, "r_at_y_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
+    (protocol, "s_at_y_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
+    (protocol, "k_at_y_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
+    (protocol, "s_at_u_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
+    (protocol.laurent, "mul_batched", "t = r1 (r + s)"),
+    (protocol, "commit_poly_batched", "batch: commits (r, t, helper)"),
+    (protocol, "open_poly_batched", "batch: openings (zkP_3, helper)"),
+]
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -67,11 +81,12 @@ def _sync(device: torch.device) -> None:
 
 
 @contextlib.contextmanager
-def phase_timers(device: torch.device):
+def phase_timers(device: torch.device, phases=PHASES):
     """Yields {label: [seconds, calls, kernel-1 launches]}, filled by the
-    calls made inside the block."""
+    calls made inside the block to the functions of `phases` (PHASES +
+    BATCH_PHASES for prove_batch)."""
     acc: dict = collections.defaultdict(lambda: [0.0, 0, 0])
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in PHASES]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in phases]
 
     def timer(fn, label):
         def timed(*args, **kwargs):
@@ -88,7 +103,7 @@ def phase_timers(device: torch.device):
         return timed
 
     try:
-        for (mod, name, fn), (_, _, label) in zip(saved, PHASES):
+        for (mod, name, fn), (_, _, label) in zip(saved, phases):
             setattr(mod, name, timer(fn, label))
         yield acc
     finally:

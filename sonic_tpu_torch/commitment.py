@@ -21,10 +21,10 @@ from __future__ import annotations
 
 from . import golden as gc
 from . import golden_protocol as gp
-from .curve.group import Affine, Jacobian, g1
+from .curve.group import Affine, Jacobian, cat, g1
 from .fields import limb
-from .fields.limb import FQ, FR
-from .msm.pippenger import WindowTotals, msm_windows
+from .fields.limb import FR
+from .msm.pippenger import WindowTotals, combine_windows, msm_windows
 from .pairing import host as pr
 from .poly.laurent import Laurent, div_by_linear, div_by_linear_batched
 from .srs import SRS
@@ -166,10 +166,23 @@ def pcv_batch(srs: SRS, checks) -> bool:
     return pr.pairing_product_is_one(pairs)
 
 
+def stack_points(points) -> Jacobian:
+    """[single or batched Jacobians] -> one flat (M,) Jacobian, in order."""
+    return cat([p.map(lambda a: a.reshape(-1, a.shape[-1])) for p in points])
+
+
+def msms_to_host(parts: list[WindowTotals]) -> list:
+    """Finish MSMs in one `combine_windows` and fetch all their points, in
+    order and flattened, with one batched to_affine."""
+    return jacobians_to_host(stack_points(combine_windows(parts)))
+
+
 def jacobians_to_host(p: Jacobian) -> list:
     """Batched Jacobian (leading axis M) -> list of host affine tuples (None
     for infinity): ONE batched to_affine (one batch_inv) and one fetch."""
-    aff = g1.to_affine(p)
-    xs, ys = FQ.to_int(aff.x.reshape(-1, FQ.nlimbs)), FQ.to_int(aff.y.reshape(-1, FQ.nlimbs))
-    infs = aff.inf.reshape(-1).tolist()
-    return [None if infs[i] else (int(xs[i]), int(ys[i])) for i in range(len(infs))]
+    return g1.to_host(g1.to_affine(p))
+
+
+def jacobian_to_host(p: Jacobian):
+    """One device Jacobian -> a host affine tuple (None for infinity)."""
+    return jacobians_to_host(p.map(lambda a: a.reshape(1, -1)))[0]

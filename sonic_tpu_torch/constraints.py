@@ -1,10 +1,12 @@
 """Constraint system -> polynomials, in PyTorch.
 
-Port of `sonic_tpu/constraints.py` (the single-proof builders; the batch
-builders wait for `prove_batch`, ROADMAP). The prover only ever needs
-r(X,1), r(X,y), s(X,y), s(u,Y), t(X,y) and k(y), so each is built directly
-as a dense univariate from the assignment and weights with power ladders
-and weighted sums.
+Port of `sonic_tpu/constraints.py`. The prover only ever needs r(X,1),
+r(X,y), s(X,y), s(u,Y), t(X,y) and k(y), so each is built directly as a
+dense univariate from the assignment and weights with power ladders and
+weighted sums. Every builder takes leading batch axes, so the proof-batch
+builders (`r_x1_batch`, `s_at_y_batch`, ...) are the code the single-proof
+forms call too: circuits stacked by `stack_circuits` along a leading proof
+axis (B, ...) go through it with no loop over B.
 
 Exponent layout (Constraints.hs):
   r'(X,Y) = sum_i a_i X^i Y^i + b_i X^-i Y^-i + c_i X^-(i+n) Y^-(i+n)
@@ -30,7 +32,8 @@ from .poly.laurent import Laurent
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCircuit:
-    """Montgomery limb tensors: wL/wR/wO (Q, n, L), cs (Q, L)."""
+    """Montgomery limb tensors: wL/wR/wO (Q, n, L), cs (Q, L); stacked
+    circuits carry a leading proof axis (B, Q, n, L), (B, Q, L)."""
 
     wL: torch.Tensor
     wR: torch.Tensor
@@ -39,11 +42,11 @@ class DeviceCircuit:
 
     @property
     def n(self) -> int:
-        return self.wL.shape[1]
+        return self.wL.shape[-2]
 
     @property
     def q(self) -> int:
-        return self.wL.shape[0]
+        return self.wL.shape[-3]
 
     @classmethod
     def from_host(cls, circuit: ArithCircuit, device=None) -> "DeviceCircuit":
@@ -66,7 +69,7 @@ class DeviceAssignment:
 
     @property
     def n(self) -> int:
-        return self.aL.shape[0]
+        return self.aL.shape[-2]
 
     @classmethod
     def from_host(cls, a: Assignment, device=None) -> "DeviceAssignment":
@@ -79,41 +82,58 @@ class DeviceAssignment:
         )
 
 
+def r_x1_batch(assignments: DeviceAssignment, cns: torch.Tensor) -> torch.Tensor:
+    """Blinded r'(X, 1) coefficients at offset -(2n+4): assignments
+    (..., n, L) and blinding (..., 4, L) -> (..., 3n+5, L); stacked
+    assignments (B, n, L) give the proof batch (B, 3n+5, L)."""
+    a = assignments
+    zero = a.aL.new_zeros(a.aL.shape[:-2] + (1, a.aL.shape[-1]))
+    return torch.cat([cns.flip(-2), a.aO.flip(-2), a.aR.flip(-2), zero, a.aL], -2)
+
+
 def r_x1_poly(assignment: DeviceAssignment, cns) -> Laurent:
     """Blinded r'(X, 1): dense over exponents [-(2n+4), n].
 
     cns: (4, L) blinding scalars c_{n+1..n+4} (Protocol.hs:58-62)."""
-    a = assignment
-    zero = a.aL.new_zeros((1, a.aL.shape[-1]))
-    coeffs = torch.cat([cns.flip(0), a.aO.flip(0), a.aR.flip(0), zero, a.aL], 0)
-    return Laurent(-(2 * a.n + 4), coeffs)
+    return Laurent(-(2 * assignment.n + 4), r_x1_batch(assignment, cns))
+
+
+def r_at_y_batch(coeffs: torch.Tensor, ys: torch.Tensor, offset: int) -> torch.Tensor:
+    """r'(X, y) coefficients from r'(X, 1)'s: coeffs (..., D, L) at
+    exponents offset.. and ys (..., L) -> coeff * y^e, (..., D, L)."""
+    pows = limb.powers(ys, FR, coeffs.shape[-2]).movedim(0, -2)
+    scale = limb.mul(pows, limb.pow_int(ys, FR, offset).unsqueeze(-2), FR)
+    return limb.mul(coeffs, scale, FR)
 
 
 def r_at_y(r1: Laurent, y) -> Laurent:
     """r'(X, y) from r'(X, 1): every term of r' is (coeff) X^e Y^e, so
     substituting Y = y scales the X^e coefficient by y^e."""
-    pows = limb.powers(y, FR, r1.length)
-    scale = limb.mul(pows, limb.pow_int(y, FR, r1.offset), FR)
-    return Laurent(r1.offset, limb.mul(r1.coeffs, scale, FR))
+    return Laurent(r1.offset, r_at_y_batch(r1.coeffs, y, r1.offset))
 
 
 def _weighted(yq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_q yq[q] * w[q, i]: yq (Q, ..., L), w (Q, n, L) -> (..., n, L)."""
-    batch = yq.dim() - 2
-    w = w.reshape((w.shape[0],) + (1,) * batch + w.shape[1:])
+    """sum_q yq[q] * w[..., q, i]: yq (Q, *B, *M, L), w (*B, Q, n, L) ->
+    (*B, *M, n, L), B the circuit's batch axes, M more batch axes of y."""
+    w = w.movedim(-3, 0)  # (Q, *B, n, L)
+    nb = w.dim() - 3
+    w = w.reshape(w.shape[: 1 + nb] + (1,) * (yq.dim() - 2 - nb) + w.shape[-2:])
     return limb.sum_mod(limb.mul(yq.unsqueeze(-2), w, FR), FR, axis=0)
 
 
-def _s_at_y_coeffs(circuit: DeviceCircuit, y) -> torch.Tensor:
-    """y (..., L) -> s(X, y) coefficients (..., 3n+1, L) at offset -n."""
-    n, q = circuit.n, circuit.q
-    ypows = limb.powers(y, FR, n + q + 1)  # y^0 .. y^(n+q)
+def s_at_y_batch(circuits: DeviceCircuit, ys: torch.Tensor) -> torch.Tensor:
+    """s(X, y) coefficients at offset -n: ys (*B, *M, L) for a circuit (or
+    a stack) with batch axes B -> (*B, *M, 3n+1, L). Stacked circuits and
+    ys (B, L) give the proof batch; ys (B, m, L) the m helper polynomials
+    of each proof."""
+    n, q = circuits.n, circuits.q
+    ypows = limb.powers(ys, FR, n + q + 1)  # y^0 .. y^(n+q)
     yq = ypows[n + 1 :]  # y^(n+1) .. y^(n+q)
-    u = _weighted(yq, circuit.wL)
-    v = _weighted(yq, circuit.wR)
-    w0 = _weighted(yq, circuit.wO)
+    u = _weighted(yq, circuits.wL)
+    v = _weighted(yq, circuits.wR)
+    w0 = _weighted(yq, circuits.wO)
     ypos = ypows[1 : n + 1].movedim(0, -2)  # y^1 .. y^n
-    yneg = limb.powers(limb.inv(y, FR), FR, n + 1)[1:].movedim(0, -2)
+    yneg = limb.powers(limb.inv(ys, FR), FR, n + 1)[1:].movedim(0, -2)
     w = limb.sub(w0, limb.add(ypos, yneg, FR), FR)
     zero = u.new_zeros(u.shape[:-2] + (1, u.shape[-1]))
     return torch.cat([u.flip(-2), zero, v, w], -2)
@@ -122,38 +142,61 @@ def _s_at_y_coeffs(circuit: DeviceCircuit, y) -> torch.Tensor:
 def s_at_y(circuit: DeviceCircuit, y) -> Laurent:
     """s(X, y): dense over exponents [-n, 2n] (Constraints.hs:34-53 with
     Y := y fused in)."""
-    return Laurent(-circuit.n, _s_at_y_coeffs(circuit, y))
+    return Laurent(-circuit.n, s_at_y_batch(circuit, y))
 
 
-def s_at_y_batched(circuit: DeviceCircuit, ys: torch.Tensor) -> torch.Tensor:
-    """s(X, y_j) for ys (M, L) -> coefficient batch (M, 3n+1, L) at the
-    common offset -n, built in one pass for the hsc helper."""
-    return _s_at_y_coeffs(circuit, ys)
+# the hsc helper's m polynomials s(X, y_j) of one circuit, ys (m, L) ->
+# (m, 3n+1, L) at the common offset -n, built in one pass
+s_at_y_batched = s_at_y_batch
+
+
+def s_at_u_batch(circuits: DeviceCircuit, us: torch.Tensor) -> torch.Tensor:
+    """s(u, Y) coefficients at offset -n: us (*B, L) for a circuit (or a
+    stack) with batch axes B -> (*B, 2n+q+1, L)."""
+    n = circuits.n
+
+    def rows(p):  # (k, *B, L) -> (*B, 1, k, L), to meet (*B, Q, n, L) weights
+        return p.movedim(0, -2).unsqueeze(-3)
+
+    upows = limb.powers(us, FR, 2 * n + 1)  # u^0 .. u^2n
+    uneg = limb.powers(limb.inv(us, FR), FR, n + 1)[1:]  # u^-1 .. u^-n
+    upos = upows[1 : n + 1]
+    uhi = upows[n + 1 : 2 * n + 1]  # u^(n+1) .. u^2n
+    # Y^(n+q) coefficients: sum_i wL[q,i] u^-i + wR[q,i] u^i + wO[q,i] u^(i+n)
+    terms = limb.add(
+        limb.add(limb.mul(circuits.wL, rows(uneg), FR), limb.mul(circuits.wR, rows(upos), FR), FR),
+        limb.mul(circuits.wO, rows(uhi), FR),
+        FR,
+    )
+    cq = limb.sum_mod(terms, FR, axis=-2)  # (*B, q, L)
+    neg_uhi = limb.neg(uhi, FR).movedim(0, -2)  # -u^(n+i), i = 1..n
+    zero = cq.new_zeros(cq.shape[:-2] + (1, cq.shape[-1]))
+    # ascending Y exponents: -n..-1 -> -u^(2n)..-u^(n+1); 0; 1..n; n+1..n+q
+    return torch.cat([neg_uhi.flip(-2), zero, neg_uhi, cq], -2)
 
 
 def s_at_u_of_y(circuit: DeviceCircuit, u) -> Laurent:
     """s(u, Y) as a polynomial in Y: dense over exponents [-n, n+Q] (the hsc
     protocol's C-polynomial, Signature.hs:48-52)."""
-    n = circuit.n
-    upows = limb.powers(u, FR, 2 * n + 1)  # u^0 .. u^2n
-    uneg = limb.powers(limb.inv(u, FR), FR, n + 1)[1:]  # u^-1 .. u^-n
-    upos = upows[1 : n + 1]
-    uhi = upows[n + 1 : 2 * n + 1]  # u^(n+1) .. u^2n
-    # Y^(n+q) coefficients: sum_i wL[q,i] u^-i + wR[q,i] u^i + wO[q,i] u^(i+n)
-    terms = limb.add(
-        limb.add(limb.mul(circuit.wL, uneg, FR), limb.mul(circuit.wR, upos, FR), FR),
-        limb.mul(circuit.wO, uhi, FR),
-        FR,
-    )
-    cq = limb.sum_mod(terms, FR, axis=1)  # (q, L)
-    neg_uhi = limb.neg(uhi, FR)  # -u^(n+i), i = 1..n
-    zero = cq.new_zeros((1, cq.shape[-1]))
-    # ascending Y exponents: -n..-1 -> -u^(2n)..-u^(n+1); 0; 1..n; n+1..n+q
-    coeffs = torch.cat([neg_uhi.flip(0), zero, neg_uhi, cq], 0)
-    return Laurent(-n, coeffs)
+    return Laurent(-circuit.n, s_at_u_batch(circuit, u))
 
 
 def k_at_y(circuit: DeviceCircuit, n: int, y):
-    """k(y) = sum_q cs_q y^(n+q) (Constraints.hs:67-68)."""
+    """k(y) = sum_q cs_q y^(n+q) (Constraints.hs:67-68); batched over the
+    circuit's leading axes and y's."""
     yq = limb.powers(y, FR, n + circuit.q + 1)[n + 1 :]
-    return limb.sum_mod(limb.mul(circuit.cs, yq, FR), FR, axis=0)
+    return limb.sum_mod(limb.mul(circuit.cs.movedim(-2, 0), yq, FR), FR, axis=0)
+
+
+# stacked cs (B, Q, L) and ys (B, L) -> (B, L) k(y_b)
+k_at_y_batch = k_at_y
+
+
+def stack_circuits(circuits: list[DeviceCircuit]) -> DeviceCircuit:
+    """B shape-identical circuits -> one DeviceCircuit with a leading proof
+    axis on every tensor ((B, Q, n, L) weights, (B, Q, L) cs)."""
+    return DeviceCircuit(*(torch.stack([getattr(c, f) for c in circuits]) for f in ("wL", "wR", "wO", "cs")))
+
+
+def stack_assignments(assignments: list[DeviceAssignment]) -> DeviceAssignment:
+    return DeviceAssignment(*(torch.stack([getattr(a, f) for a in assignments]) for f in ("aL", "aR", "aO")))

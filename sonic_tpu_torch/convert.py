@@ -6,7 +6,7 @@ array) and never imports jax. Field elements keep the JAX layout: (..., L)
 `srs`, `circuit` and `assignment` put their tensors on the card unless
 `device` says otherwise.
 
-    srs(d, g_x, g_ax, h_x, h_ax)           device SRS (tables as (x, y, inf))
+    srs(d, g_x, g_ax, h_x, h_ax)           device SRS, all four tables (x, y, inf)
     circuit(wL, wR, wO, cs)                DeviceCircuit
     assignment(aL, aR, aO)                 DeviceAssignment
 """
@@ -18,7 +18,6 @@ import torch
 from .constraints import DeviceAssignment, DeviceCircuit
 from .curve.group import Affine
 from .device import resolve
-from .fields.limb import FQ
 from .srs import SRS
 
 
@@ -33,30 +32,12 @@ def affine(x, y, inf, device=None) -> Affine:
     )
 
 
-def g2_rows(x, y, inf) -> list:
-    """A G2 Affine table as numpy arrays (x, y: (rows, 2, 24) Montgomery Fq2
-    limbs, c0 then c1; inf: (rows,)) -> host affine points, None = infinity."""
-    x0, x1 = FQ.to_int(np.asarray(x)[:, 0]), FQ.to_int(np.asarray(x)[:, 1])
-    y0, y1 = FQ.to_int(np.asarray(y)[:, 0]), FQ.to_int(np.asarray(y)[:, 1])
-    return [
-        None if flag else ((int(x0[i]), int(x1[i])), (int(y0[i]), int(y1[i])))
-        for i, flag in enumerate(np.asarray(inf, bool))
-    ]
-
-
 def srs(d: int, g_x, g_ax, h_x, h_ax, device=None) -> SRS:
-    """A JAX device SRS (full mode) -> the port's SRS.
-
-    g_x, g_ax: (x, y, inf) numpy arrays of the G1 tables; h_x, h_ax: the G2
-    tables as (x, y, inf) arrays, kept as host points."""
+    """A JAX device SRS (full mode) -> the port's SRS, all four tables on
+    `device`. Each table is an (x, y, inf) triple of numpy arrays: G1
+    coordinates (rows, 24), G2 coordinates (rows, 2, 24), c0 then c1."""
     device = resolve(device)
-    return SRS(
-        d,
-        affine(*g_x, device=device),
-        affine(*g_ax, device=device),
-        g2_rows(*h_x),
-        g2_rows(*h_ax),
-    )
+    return SRS(d, *(affine(*t, device=device) for t in (g_x, g_ax, h_x, h_ax)))
 
 
 def circuit(wL, wR, wO, cs, device=None) -> DeviceCircuit:

@@ -2,8 +2,8 @@
 the original's, line for line; its relative imports resolve inside the port.
 
 `sonic_tpu/__init__.py` imports jax whenever any of its submodules is
-imported, so the port carries its own copy of this host module.
-ROADMAP item 16 (a lazy `sonic_tpu/__init__`) removes the copy.
+imported, and `sonic_tpu/` stays as it is, so the port carries its own
+copy of this host module.
 
 Original docstring:
 

@@ -1,7 +1,6 @@
 """JAX-free copy of `sonic_tpu/native.py`, changed only in `_find_lib`:
 the port compiles `native/pairing.cpp` for the machine it runs on instead
-of loading the committed library. ROADMAP item 16 (a lazy
-`sonic_tpu/__init__`) lets the port share the original again.
+of loading the committed library.
 
 Original docstring:
 

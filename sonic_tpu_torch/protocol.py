@@ -1,8 +1,8 @@
 """The Sonic protocol: device prover and hybrid verifier, in PyTorch.
 
-Port of `sonic_tpu/protocol.py` (`prove` and `verify`; `prove_batch` waits,
-see ROADMAP). Reference: src/Sonic/Protocol.hs, with the reference's
-prover-supplied challenges (explicit `Randomness`, no Fiat-Shamir):
+Port of `sonic_tpu/protocol.py` (`prove`, `prove_batch`, `verify`).
+Reference: src/Sonic/Protocol.hs, with the reference's prover-supplied
+challenges (explicit `Randomness`, no Fiat-Shamir):
 
   zkP_1  r'(X,1) build + commit            -> build + MSM
   zkP_2  t(X,y) = r(X,1)(r(X,y)+s(X,y))-k(y) -> dense Laurent product + MSM
@@ -18,23 +18,37 @@ from __future__ import annotations
 import torch
 
 from . import golden_protocol as gp
-from .commitment import commit_poly, jacobians_to_host, open_poly, pcv_batch
+from .commitment import (
+    commit_poly,
+    commit_poly_batched,
+    jacobians_to_host,
+    open_poly,
+    open_poly_batched,
+    pcv_batch,
+    stack_points,
+)
 from .constraints import (
     DeviceAssignment,
     DeviceCircuit,
     k_at_y,
+    k_at_y_batch,
     r_at_y,
+    r_at_y_batch,
+    r_x1_batch,
     r_x1_poly,
+    s_at_u_batch,
     s_at_u_of_y,
     s_at_y,
+    s_at_y_batch,
+    stack_assignments,
+    stack_circuits,
 )
-from .curve.group import Jacobian, cat
 from .fields import limb
 from .fields.limb import FR
 from .msm.pippenger import combine_windows
 from .poly import laurent
 from .poly.laurent import Laurent, evaluate
-from .signature import hsc_checks, hsc_prove_device
+from .signature import hsc_assemble, hsc_checks, hsc_prove_device
 from .srs import SRS
 
 
@@ -52,7 +66,7 @@ def _prove_compute(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m,
     parts, scal = _prove_phases(
         srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m
     )
-    return _stack_points(combine_windows(parts)), scal
+    return stack_points(combine_windows(parts)), scal
 
 
 def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m):
@@ -94,11 +108,6 @@ def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, 
     return parts, scal
 
 
-def _stack_points(points) -> Jacobian:
-    """[single or (m,) batched Jacobians] -> one (4m+7,) Jacobian."""
-    return cat([p.map(lambda a: a.reshape(-1, a.shape[-1])) for p in points])
-
-
 def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
           rnd: gp.Randomness) -> tuple[gp.Proof, gp.RndOracle]:
     """Protocol.hs:47-109 with explicit randomness; device compute on the
@@ -127,11 +136,7 @@ def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
     pts = jacobians_to_host(allj)
     evs = [int(v) for v in FR.to_int(scal)]
     a_i, b_i, s_i, tc_i = evs[:4]
-    if tc_i != 0:
-        raise IndexError(
-            "commitPoly: nonzero coefficient at alpha*x^0 (g^alpha is "
-            "not in the SRS)"
-        )
+    _check_t_hole([tc_i])
     fzs_i, s2_i = evs[4 : 4 + m], evs[4 + m :]
     r_h, t_h, wa_h, wb_h, wt_h = pts[:5]
     cms_h, ws_h = pts[5 : 5 + m], pts[5 + m : 5 + 2 * m]
@@ -157,6 +162,102 @@ def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
         pr_hsc=hsc,
     )
     return proof, oracle
+
+
+def _check_t_hole(t_consts) -> None:
+    """The reference's panic for a violating assignment: t's X^0 coefficient
+    would meet the missing g^alpha row (CommitmentScheme.hs:70-73)."""
+    if any(t_consts):
+        raise IndexError(
+            "commitPoly: nonzero coefficient at alpha*x^0 (g^alpha is "
+            "not in the SRS)"
+        )
+
+
+def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list) -> list:
+    """B independent, shape-identical circuits in one device pipeline
+    (BASELINE config 5). Every stage batches over the proof axis: one
+    r'(X,1) build, one batched t(X,y) product, batched openings, and the
+    helper's B*m instances flattened into single batched pipelines. All
+    B(4m+7) MSMs finish in ONE `combine_windows`, then one batched
+    to_affine and one fetch, as in `prove`.
+
+    Equal to B single `prove` calls, byte for byte (hsc u and v reduced
+    mod P as `prove` does). Returns [(Proof, RndOracle)] in input order."""
+    B = len(assignments)
+    n = assignments[0].n
+    m = len(rnds[0].ys)
+    if srs.d < 7 * n:
+        raise ValueError(
+            f"Parameter d is not large enough: {srs.d} should be > {7 * n}"
+        )
+    dev = assignments[0].aL.device
+    asg = stack_assignments(assignments)
+    cir = stack_circuits(circuits)
+
+    def fr(vals, *shape):
+        return FR.from_int(vals, device=dev).reshape(shape + (FR.nlimbs,))
+
+    cns = fr([r.cns for r in rnds], B, 4)
+    ys, zs = fr([r.y for r in rnds], B), fr([r.z for r in rnds], B)
+    us, vs = fr([r.u for r in rnds], B), fr([r.v for r in rnds], B)
+    ys_h = fr([yi for r in rnds for yi in r.ys], B, m)
+    zs_h = fr([zi for r in rnds for zi in r.zs], B * m)
+
+    # zkP_1: blinded r'(X, 1) and its commitments
+    off_r = -(2 * n + 4)
+    r1 = r_x1_batch(asg, cns)  # (B, 3n+5, L)
+    commit_r = commit_poly_batched(srs, n, off_r, r1)
+    # zkP_2: t(X, y_b) = r'(X,1)(r'(X,y_b) + s(X,y_b)) - k(y_b)
+    s_y = s_at_y_batch(cir, ys)  # (B, 3n+1, L) at -n
+    off_sum, rs = laurent.add_batched(off_r, r_at_y_batch(r1, ys, off_r), -n, s_y)
+    t_c = laurent.mul_batched(r1, rs)
+    off_t = off_r + off_sum
+    ci = -off_t
+    t_c[:, ci] = limb.sub(t_c[:, ci], k_at_y_batch(cir, n, ys), FR)
+    commit_t = commit_poly_batched(srs, srs.d, off_t, t_c, check_hole=False)
+    # zkP_3: openings of r' at z_b and y_b z_b, of t at z_b; s(z_b, y_b)
+    a_m, wa = open_poly_batched(srs, zs, off_r, r1)
+    b_m, wb = open_poly_batched(srs, limb.mul(ys, zs, FR), off_r, r1)
+    _, wt = open_poly_batched(srs, zs, off_t, t_c)
+    szy = laurent.evaluate_batched(-n, s_y, zs)
+    # helper: all B*m instances in flat batched pipelines (check_hole=False:
+    # s(X, y)'s X^0 and s(u, Y)'s Y^0 coefficients are zero by construction)
+    s_flat = s_at_y_batch(cir, ys_h).flatten(0, 1)  # (B*m, 3n+1, L)
+    ys_h = ys_h.flatten(0, 1)
+    cms = commit_poly_batched(srs, srs.d, -n, s_flat, check_hole=False)
+    fzs, ws = open_poly_batched(srs, zs_h, -n, s_flat)
+    _, w2 = open_poly_batched(srs, us.repeat_interleave(m, 0), -n, s_flat)
+    su = s_at_u_batch(cir, us)  # (B, 2n+q+1, L) at -n
+    c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False)
+    s2, qs = open_poly_batched(srs, ys_h, -n, su.repeat_interleave(m, 0))
+    _, qv = open_poly_batched(srs, vs, -n, su)
+
+    # ONE window combine, ONE batched to_affine + fetch for all B(4m+7)
+    # points, and one fetch for the 4B + 2Bm scalars
+    pts = jacobians_to_host(
+        stack_points(combine_windows([commit_r, commit_t, wa, wb, wt, cms, ws, w2, qs, c, qv]))
+    )
+    evs = [int(v) for v in FR.to_int(torch.cat([a_m, b_m, szy, t_c[:, ci], fzs, s2], 0))]
+    a_i, b_i, s_i, tc_i = (evs[k * B : (k + 1) * B] for k in range(4))
+    _check_t_hole(tc_i)
+    fzs_i, s2_i = evs[4 * B : 4 * B + B * m], evs[4 * B + B * m :]
+    r_h, t_h, wa_h, wb_h, wt_h = (pts[k * B : (k + 1) * B] for k in range(5))
+    start = 5 * B
+    cms_h, ws_h, w2_h, qs_h = (pts[start + k * B * m : start + (k + 1) * B * m] for k in range(4))
+    c_h, qv_h = pts[start + 4 * B * m : start + 4 * B * m + B], pts[start + 4 * B * m + B :]
+    hscs = hsc_assemble(
+        B, m, c_h, qv_h, cms_h, fzs_i, ws_h, s2_i, w2_h, qs_h,
+        [r.u % gp.P for r in rnds], [r.v % gp.P for r in rnds],
+    )
+    out = []
+    for b, r in enumerate(rnds):
+        proof = gp.Proof(
+            pr_r=r_h[b], pr_t=t_h[b], pr_a=a_i[b], pr_wa=wa_h[b], pr_b=b_i[b],
+            pr_wb=wb_h[b], pr_wt=wt_h[b], pr_s=s_i[b], pr_hsc=hscs[b],
+        )
+        out.append((proof, gp.RndOracle(r.y, r.z, list(zip(r.ys, r.zs)))))
+    return out
 
 
 def verify(srs: SRS, circuit: DeviceCircuit, proof: gp.Proof, y: int, z: int,

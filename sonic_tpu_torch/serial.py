@@ -1,7 +1,9 @@
-"""JAX-free copy of the Fr/G1 codecs and the proof codec of
-`sonic_tpu/serial.py` (its lines 28-76 and 151-224, unchanged). The G2
-codecs and the SRS checkpoints wait for ROADMAP items 12 and 14; ROADMAP
-item 16 (a lazy `sonic_tpu/__init__`) removes the copy.
+"""Canonical serialization and SRS checkpoints, in PyTorch.
+
+The Fr/G1/G2 codecs and the proof codec are a JAX-free copy of
+`sonic_tpu/serial.py` (its lines 28-224, unchanged). `save_srs` and
+`load_srs` are rewritten for torch tensors and keep the reference's file
+layout, so a checkpoint written by either package loads in the other.
 
 Encodings (ZCash/IETF convention):
 
@@ -9,11 +11,21 @@ Encodings (ZCash/IETF convention):
   Fq: 48-byte big-endian (inside point encodings).
   G1 compressed: 48 bytes; MSB flags: bit7 compressed=1, bit6 infinity,
      bit5 y-sign (lexicographically largest y).
+  G2 compressed: 96 bytes (c1 limb first, same flags on the first byte).
+
+SRS checkpoint: a numpy .npz of the device tables as the reference stores
+them (16-bit limbs in uint32, G1 coordinates (rows, 24), G2 (rows, 2, 24),
+inf flags bool), plus `h_rows_json` for a verifier-mode SRS.
 """
 from __future__ import annotations
 
+import json
 import struct
 
+import numpy as np
+import torch
+
+from .device import resolve
 from .fields.constants import Q_MOD, R_MOD
 from . import golden_protocol as gp
 
@@ -68,6 +80,72 @@ def g1_from_bytes(b: bytes):
     if _y_is_large(y) != bool(flags & 0b0010_0000):
         y = Q_MOD - y
     return (x, y)
+
+
+def g2_to_bytes(p) -> bytes:
+    """Compressed G2 (96 bytes, c1 || c0 big-endian)."""
+    if p is None:
+        out = bytearray(96)
+        out[0] = 0b1100_0000
+        return bytes(out)
+    (x0, x1), (y0, y1) = p
+    out = bytearray(int(x1).to_bytes(48, "big") + int(x0).to_bytes(48, "big"))
+    out[0] |= 0b1000_0000
+    if (y1, y0) > (Q_MOD - y1 if y1 else 0, (Q_MOD - y0) % Q_MOD):
+        # lexicographic sign on (c1, c0)
+        out[0] |= 0b0010_0000
+    return bytes(out)
+
+
+def _fq2_sqrt(a):
+    """Square root in Fq2 via the complex method (q % 4 == 3)."""
+    from .golden import fq2_mul, fq2_inv
+
+    a0, a1 = a
+    if a1 == 0:
+        r = _sqrt_fq(a0)
+        if r is not None:
+            return (r, 0)
+        # sqrt of non-residue: a0 = -(b^2) -> sqrt = b*u
+        r = _sqrt_fq((-a0) % Q_MOD)
+        return (0, r) if r is not None else None
+    alpha = (a0 * a0 + a1 * a1) % Q_MOD  # norm
+    s = _sqrt_fq(alpha)
+    if s is None:
+        return None
+    delta = (a0 + s) * pow(2, -1, Q_MOD) % Q_MOD
+    x0 = _sqrt_fq(delta)
+    if x0 is None:
+        delta = (a0 - s) * pow(2, -1, Q_MOD) % Q_MOD
+        x0 = _sqrt_fq(delta)
+        if x0 is None:
+            return None
+    x1 = a1 * pow(2 * x0, -1, Q_MOD) % Q_MOD
+    return (x0, x1)
+
+
+def g2_from_bytes(b: bytes):
+    if len(b) != 96:
+        raise ValueError("G2 encoding must be 96 bytes")
+    flags = b[0]
+    if not flags & 0b1000_0000:
+        raise ValueError("only compressed encodings supported")
+    if flags & 0b0100_0000:
+        return None
+    x1 = int.from_bytes(bytes([flags & 0b0001_1111]) + b[1:48], "big")
+    x0 = int.from_bytes(b[48:], "big")
+    from .golden import fq2_mul, fq2_add, fq2_sqr
+
+    x = (x0, x1)
+    rhs = fq2_add(fq2_mul(fq2_sqr(x), x), (4, 4))
+    y = _fq2_sqrt(rhs)
+    if y is None:
+        raise ValueError("invalid G2 x-coordinate")
+    y0, y1 = y
+    large = (y1, y0) > ((Q_MOD - y1) % Q_MOD, (Q_MOD - y0) % Q_MOD)
+    if large != bool(flags & 0b0010_0000):
+        y = ((Q_MOD - y0) % Q_MOD, (Q_MOD - y1) % Q_MOD)
+    return ((x0, x1), y)
 
 
 # ---------------------------------------------------------------------------
@@ -143,3 +221,64 @@ def proof_from_bytes(data: bytes) -> gp.Proof:
         pr_r, pr_t, pr_a, pr_wa, pr_b, pr_wb, pr_wt, pr_s,
         gp.HscProof(hsc_s, hsc_w, qv, c, u, v),
     )
+
+
+# ---------------------------------------------------------------------------
+# SRS checkpoint (device tables as raw uint32 arrays)
+# ---------------------------------------------------------------------------
+
+
+def save_srs(path: str, srs) -> None:
+    """Checkpoint a device SRS to <path> (numpy .npz container).
+
+    A full SRS saves all four tables; a verifier-mode SRS saves the two G1
+    tables plus its h-row cache as JSON, everything pcV will ever read.
+    Table bytes are stored uncompressed: curve coordinates are high-entropy.
+    """
+    arrays = {"d": srs.d}
+    names = ("g_x", "g_ax") if srs.h_x is None else ("g_x", "g_ax", "h_x", "h_ax")
+    for name in names:
+        tab = getattr(srs, name)
+        arrays[f"{name}_x"] = tab.x.cpu().numpy().astype(np.uint32)
+        arrays[f"{name}_y"] = tab.y.cpu().numpy().astype(np.uint32)
+        arrays[f"{name}_inf"] = tab.inf.cpu().numpy()
+    if srs.h_x is None:
+        rows = [{"kind": kind, "e": e, "point": pt} for (kind, e), pt in srs.h_rows.items()]
+        arrays["h_rows_json"] = np.frombuffer(json.dumps(rows).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_srs(path: str, device=None):
+    """A checkpoint of either package -> the port's SRS on `device` (None:
+    the card)."""
+    from .curve.group import Affine
+    from .srs import SRS
+
+    device = resolve(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+    with np.load(path) as z:
+        d = int(z["d"])
+        full = "h_x_x" in z
+        names = ("g_x", "g_ax", "h_x", "h_ax") if full else ("g_x", "g_ax")
+        tabs = {
+            name: Affine(
+                tensor(z[f"{name}_x"]),
+                tensor(z[f"{name}_y"]),
+                torch.from_numpy(np.asarray(z[f"{name}_inf"], bool)).to(device),
+            )
+            for name in names
+        }
+        if full:
+            return SRS(d, **tabs)
+        srs = SRS(d, tabs["g_x"], tabs["g_ax"])
+        for row in json.loads(bytes(z["h_rows_json"]).decode()):
+            pt = row["point"]
+            if pt is not None:
+                # JSON turns tuples into lists; pcV compares against host
+                # tuple points, so restore ((x0,x1),(y0,y1)) exactly.
+                pt = (tuple(pt[0]), tuple(pt[1]))
+            srs.h_rows[(row["kind"], int(row["e"]))] = pt
+    return srs

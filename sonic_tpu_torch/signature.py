@@ -1,18 +1,22 @@
 """Helper protocol, "signatures of correct computation": device prover and
 host verifier.
 
-Port of `sonic_tpu/signature.py` (hsc_prove_device = hsc_sj_device +
-hsc_cu_device, hsc_checks, hsc_verify). Reference: src/Sonic/Signature.hs.
+Port of `sonic_tpu/signature.py` (hsc_prove, hsc_prove_device =
+hsc_sj_device + hsc_cu_device, hsc_assemble, hsc_checks, hsc_verify).
+Reference: src/Sonic/Signature.hs.
 The m (y_j, z_j) openings are independent and shape-identical
 (Signature.hs:40-57), so the helper runs as one batched s(X, y_j) build,
 one batched commit and three batched opening MSMs.
 """
 from __future__ import annotations
 
+import torch
+
 from . import golden_protocol as gp
 from .commitment import (
     commit_poly,
     commit_poly_batched,
+    msms_to_host,
     open_poly,
     open_poly_batched,
     pcv_batch,
@@ -47,18 +51,78 @@ def hsc_sj_device(srs: SRS, circuit: DeviceCircuit, ys, zs):
     return s_coeffs, cms, fzs, ws
 
 
-def hsc_cu_device(srs: SRS, circuit: DeviceCircuit, s_coeffs, u_m, ys, v_m):
+def hsc_cu_device(srs: SRS, circuit: DeviceCircuit, s_coeffs, u_m, ys, v_m,
+                  su_y=None, c=None):
     """The C/u/v block of hscProve (Signature.hs:48-63): commit s(u, Y),
-    open the s(X, y_j) batch at u, open s(u, Y) at each y_j and at v."""
+    open the s(X, y_j) batch at u, open s(u, Y) at each y_j and at v.
+    su_y / c may be passed in when already computed (the Fiat-Shamir
+    prover must commit C and squeeze v before this block can run)."""
     n = circuit.n
     m = ys.shape[0]
-    su_y = s_at_u_of_y(circuit, u_m)
-    c = commit_poly(srs, srs.d, su_y, check_hole=False)
+    if su_y is None:
+        su_y = s_at_u_of_y(circuit, u_m)
+    if c is None:
+        c = commit_poly(srs, srs.d, su_y, check_hole=False)
     _, w2 = open_poly_batched(srs, u_m.expand(ys.shape), -n, s_coeffs)
     su_b = su_y.coeffs.unsqueeze(0).expand((m,) + su_y.coeffs.shape)
     s2, qs = open_poly_batched(srs, ys, su_y.offset, su_b)
     _, qv = open_poly(srs, v_m, su_y)
     return c, w2, s2, qs, qv
+
+
+def hsc_prove(srs: SRS, circuit: DeviceCircuit, yzs_m, u_m, v_m) -> gp.HscProof:
+    """hscProve (Signature.hs:32-72). yzs_m: list of (y, z) Montgomery limb
+    pairs; u_m, v_m: Montgomery limbs. Returns a host-form HscProof.
+
+    All device work runs first, then the 4m+2 MSMs finish in one window
+    combine, and the points come back in ONE batched to_affine and fetch,
+    the 2m evaluations in one more."""
+    m = len(yzs_m)
+    if m == 0:
+        su_y = s_at_u_of_y(circuit, u_m)
+        c = commit_poly(srs, srs.d, su_y)
+        _, qv = open_poly(srs, v_m, su_y)
+        c_h, qv_h = msms_to_host([c, qv])
+        return gp.HscProof(
+            hsc_s=[], hsc_w=[], hsc_qv=qv_h, hsc_c=c_h,
+            hsc_u=int(FR.to_int(u_m)), hsc_v=int(FR.to_int(v_m)),
+        )
+    ys = torch.stack([y for y, _ in yzs_m])  # (m, L)
+    zs = torch.stack([z for _, z in yzs_m])
+    cms, ws, w2, qs, c, qv, fzs, s2 = hsc_prove_device(srs, circuit, ys, zs, u_m, v_m)
+    pts = msms_to_host([cms, ws, w2, qs, c, qv])
+    evs = [int(v) for v in FR.to_int(torch.cat([fzs, s2], 0))]
+    cms_h, ws_h = pts[:m], pts[m : 2 * m]
+    w2_h, qs_h = pts[2 * m : 3 * m], pts[3 * m : 4 * m]
+    c_h, qv_h = pts[4 * m], pts[4 * m + 1]
+    fzs_i, s2_i = evs[:m], evs[m:]
+    return gp.HscProof(
+        hsc_s=[(cms_h[j], (fzs_i[j], ws_h[j])) for j in range(m)],
+        hsc_w=[(s2_i[j], w2_h[j], qs_h[j]) for j in range(m)],
+        hsc_qv=qv_h,
+        hsc_c=c_h,
+        hsc_u=int(FR.to_int(u_m)),
+        hsc_v=int(FR.to_int(v_m)),
+    )
+
+
+def hsc_assemble(B: int, m: int, c_list, qv_list, cms, fzs, ws, s2, w2, qs, us, vs) -> list:
+    """Reassemble per-proof HscProofs from the flat (B*m) batched pipeline
+    outputs of prove_batch (same field layout as hsc_prove)."""
+    out = []
+    for b in range(B):
+        sl = range(b * m, (b + 1) * m)
+        out.append(
+            gp.HscProof(
+                hsc_s=[(cms[i], (fzs[i], ws[i])) for i in sl],
+                hsc_w=[(s2[i], w2[i], qs[i]) for i in sl],
+                hsc_qv=qv_list[b],
+                hsc_c=c_list[b],
+                hsc_u=us[b],
+                hsc_v=vs[b],
+            )
+        )
+    return out
 
 
 def hsc_checks(srs: SRS, circuit: DeviceCircuit, yzs, proof: gp.HscProof) -> list:

@@ -1,18 +1,17 @@
 """Structured reference string, in PyTorch.
 
-Port of `sonic_tpu/srs.py`: the device record with `from_host`, the
-verifier-mode `SRS.new`, and the h-row reads of pcV. Each (negative,
-positive) power table pair is ONE G1 Affine batch indexed by exponent + d,
-so a commit or opening reads a contiguous slice:
+Port of `sonic_tpu/srs.py`. Each (negative, positive) power table pair is
+ONE Affine batch indexed by exponent + d, so a commit or opening reads a
+contiguous slice:
 
     g_x[e + d]  = g^(x^e)            e in [-d, d]
     g_ax[e + d] = g^(alpha x^e)      e in [-d, d]; the e = 0 row is the point
                   at infinity: g^alpha is deliberately omitted (SRS.hs:38-39)
+    h_x, h_ax   = the same over G2 (h_ax HAS the e = 0 row, SRS.hs:40-41)
 
-The G2 side stays on the host: pcV reads only h^(x^(-d+max)), h^alpha and
-h^(alpha x). Under `from_host` they come from the host SRS's G2 lists;
-under `new(h_mode="verifier")` they are computed from the trapdoor. The
-full device G2 tables (h_mode="full") wait for ROADMAP item 12.
+Generation: powers of x by log-depth ladders (limb.powers), then each table
+is a fixed-base windowed multiply (msm/fixed_base.py) and one batched
+affine conversion per group.
 """
 from __future__ import annotations
 
@@ -22,59 +21,64 @@ import torch
 
 from . import golden
 from . import golden_protocol as gp
-from .curve.group import Affine, g1
+from .curve.group import Affine, g1, g2
 from .device import resolve
 from .fields import limb
-from .fields.limb import FQ, FR
+from .fields.limb import FR
+from .msm.fixed_base import fixed_base_mul
+
+
+def _rows(tab: Affine, lo: int, hi: int) -> Affine:
+    return Affine(tab.x[lo:hi], tab.y[lo:hi], tab.inf[lo:hi])
 
 
 @dataclasses.dataclass(frozen=True)
 class SRS:
-    """Device SRS: g tables are G1 Affine batches of 2d+1 rows (row =
-    exponent + d); h_x / h_ax are host lists of G2 affine points with the
-    same row index, or None in verifier mode, where `h_rows` holds the
-    few rows pcV reads."""
+    """Device SRS: g tables are G1 Affine batches and h tables G2 Affine
+    batches of 2d+1 rows (row = exponent + d). In verifier mode h_x / h_ax
+    are None and `h_rows` holds the few rows pcV reads; otherwise `h_rows`
+    caches the rows read so far."""
 
     d: int
     g_x: Affine
     g_ax: Affine
-    h_x: list | None = None
-    h_ax: list | None = None
+    h_x: Affine | None = None
+    h_ax: Affine | None = None
     h_rows: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
-    def new(cls, d: int, x: int, alpha: int, h_mode: str = "verifier",
-            n_hints=(), device=None) -> "SRS":
-        """Trusted setup from the trapdoor (x, alpha), G1 tables on `device`.
+    def new(cls, d: int, x: int, alpha: int, h_mode: str = "full", n_hints=(),
+            device=None) -> "SRS":
+        """Trusted setup from the trapdoor (x, alpha), tables on `device`
+        (None: the card).
 
-        The 2(2d+1) exponent scalars of both tables go through ONE batched
-        255-step double-and-add ladder and ONE batched affine conversion.
-        Only h_mode="verifier" exists: pcV reads h^(x^(-d+max)) for max in
-        {n, d}, h^alpha and h^(alpha x), computed here on the host from the
-        trapdoor for every circuit size in `n_hints` (the trapdoor is not
-        kept, so a missing size raises later). `device=None` is the card."""
-        if h_mode != "verifier":
-            raise ValueError(
-                f"h_mode {h_mode!r}: only 'verifier' is ported; the device G2 "
-                "tables wait for fixed_base_mul and Fq2 (ROADMAP)"
-            )
+        h_mode:
+          "full"     - all four tables (the reference's SRS record,
+                       SRS.hs:11-22; needed by to_host and full checkpoints).
+          "verifier" - the G1 tables only: pcV reads h^(x^(-d+max)) for max
+                       in {n, d}, h^alpha and h^(alpha x), computed here on
+                       the host from the trapdoor for every circuit size in
+                       `n_hints` (the trapdoor is not kept, so a missing
+                       size raises later)."""
+        if h_mode not in ("full", "verifier"):
+            raise ValueError(f"unknown h_mode {h_mode!r}")
         device = resolve(device)
         x_m = FR.from_int(x, device=device)
         alpha_m = FR.from_int(alpha, device=device)
         pos = limb.powers(x_m, FR, d + 1)  # x^0 .. x^d
         neg = limb.powers(limb.inv(x_m, FR), FR, d + 1)[1:]  # x^-1 .. x^-d
         exps = torch.cat([neg.flip(0), pos], 0)  # x^-d .. x^d
-        g_aexps = limb.mul(exps, alpha_m, FR)
+        aexps = limb.mul(exps, alpha_m, FR)
+        g_aexps = aexps.clone()
         g_aexps[d] = 0  # g^alpha is omitted: scalar 0 -> infinity
-        scalars = limb.from_mont(torch.cat([exps, g_aexps], 0), FR)
-        gen = g1.from_affine(g1.generator(device))
-        aff = g1.to_affine(g1.scalar_mul(gen, scalars))
         rows = 2 * d + 1
-
-        def part(lo):
-            return Affine(aff.x[lo : lo + rows], aff.y[lo : lo + rows], aff.inf[lo : lo + rows])
-
-        srs = cls(d, part(0), part(rows))
+        scalars = limb.from_mont(torch.cat([exps, g_aexps, aexps], 0), FR)
+        g = g1.to_affine(fixed_base_mul(g1, scalars[: 2 * rows]))
+        if h_mode == "full":
+            h = g2.to_affine(fixed_base_mul(g2, torch.cat([scalars[:rows], scalars[2 * rows :]], 0)))
+            return cls(d, _rows(g, 0, rows), _rows(g, rows, 2 * rows),
+                       _rows(h, 0, rows), _rows(h, rows, 2 * rows))
+        srs = cls(d, _rows(g, 0, rows), _rows(g, rows, 2 * rows))
         P = gp.P
         for maxm in set(n_hints) | {d}:
             e = -d + maxm
@@ -84,31 +88,57 @@ class SRS:
             srs.h_rows[("ax", e)] = golden.g2_mul(golden.G2_GEN, alpha * pow(x, e, P) % P)
         return srs
 
+    # -- host interop -------------------------------------------------------------
+
     @classmethod
     def from_host(cls, srs: gp.SRS, device=None) -> "SRS":
-        """Upload a host (golden) SRS: G1 tables to `device` (None: the
-        card), G2 rows kept as host lists."""
+        """Upload a host (golden) SRS, all four tables, to `device` (None:
+        the card)."""
         device = resolve(device)
 
-        def rows(neg, pos, hole_at_zero):
-            return list(reversed(neg)) + ([None] if hole_at_zero else []) + list(pos)
-
-        def g1_rows(pts):
-            return Affine(
-                FQ.from_int([p[0] if p else 0 for p in pts], device=device),
-                FQ.from_int([p[1] if p else 0 for p in pts], device=device),
-                torch.tensor([p is None for p in pts], dtype=torch.bool, device=device),
-            )
+        def rows(group, neg, pos, hole_at_zero):
+            pts = list(reversed(neg)) + ([None] if hole_at_zero else []) + list(pos)
+            return group.from_host(pts, device)
 
         return cls(
             d=srs.d,
-            g_x=g1_rows(rows(srs.g_neg_x, srs.g_pos_x, False)),
-            g_ax=g1_rows(rows(srs.g_neg_ax, srs.g_pos_ax, True)),
-            h_x=rows(srs.h_neg_x, srs.h_pos_x, False),
-            h_ax=rows(srs.h_neg_ax, srs.h_pos_ax, False),
+            g_x=rows(g1, srs.g_neg_x, srs.g_pos_x, False),
+            g_ax=rows(g1, srs.g_neg_ax, srs.g_pos_ax, True),
+            h_x=rows(g2, srs.h_neg_x, srs.h_pos_x, False),
+            h_ax=rows(g2, srs.h_neg_ax, srs.h_pos_ax, False),
         )
 
-    # -- verifier elements ------------------------------------------------------
+    def to_host(self) -> gp.SRS:
+        """Download to the host (golden) representation: for pairing checks,
+        the pinned digest and serialization round trips."""
+        if self.h_x is None:
+            raise ValueError(
+                "SRS(h_mode='verifier') has no full h tables; generate "
+                "with h_mode='full' for host interop/serialization"
+            )
+        d = self.d
+        g_x, g_ax = g1.to_host(self.g_x), g1.to_host(self.g_ax)
+        h_x, h_ax = g2.to_host(self.h_x), g2.to_host(self.h_ax)
+
+        def neg(tab):  # exponents -1 .. -d
+            return tab[d - 1 :: -1] if d else []
+
+        return gp.SRS(
+            d=d,
+            g_neg_x=neg(g_x),
+            g_pos_x=g_x[d:],
+            h_neg_x=neg(h_x),
+            h_pos_x=h_x[d:],
+            g_neg_ax=neg(g_ax),
+            g_pos_ax=g_ax[d + 1 :],
+            h_neg_ax=neg(h_ax),
+            h_pos_ax=h_ax[d:],
+        )
+
+    # -- verifier elements ----------------------------------------------------------
+    # pcV touches only a handful of distinct h rows (h^(x^(-d+max)) for max
+    # in {n, d}, h^alpha, h^(alpha x)) but is called 3m+4 times per verify;
+    # each row is read from the device once and kept in `h_rows`.
 
     def h_x_at(self, e: int):
         """h^(x^e) as a host affine point (pcV's h^(x^(-d+max)))."""
@@ -119,7 +149,7 @@ class SRS:
                     f"SRS(h_mode='verifier') holds no h^(x^{e}) row; "
                     "regenerate with this circuit size in n_hints"
                 )
-            self.h_rows[key] = self.h_x[e + self.d]
+            self.h_rows[key] = _g2_row_to_host(self.h_x, e + self.d)
         return self.h_rows[key]
 
     def h_ax_at(self, e: int):
@@ -127,5 +157,13 @@ class SRS:
         if key not in self.h_rows:
             if self.h_ax is None:
                 raise ValueError(f"SRS(h_mode='verifier') holds no h^(alpha x^{e}) row")
-            self.h_rows[key] = self.h_ax[e + self.d]
+            self.h_rows[key] = _g2_row_to_host(self.h_ax, e + self.d)
         return self.h_rows[key]
+
+
+def _g2_row_to_host(tab: Affine, idx: int):
+    return g2.to_host(_rows(tab, idx, idx + 1))[0]
+
+
+def g1_row_to_host(tab: Affine, idx: int):
+    return g1.to_host(_rows(tab, idx, idx + 1))[0]

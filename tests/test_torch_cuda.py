@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA card: each CUDA kernel against its plain
-version on the same CUDA tensors, and the pinned example2 proof on the card.
+version on the same CUDA tensors, the pinned example2 proof on the card,
+and a proof batch and a full SRS on the card against their CPU results.
 
 Every test here needs a CUDA device; it skips elsewhere. This file imports
 neither jax nor sonic_tpu, and the card's machine has no jax, so run it
@@ -18,7 +19,7 @@ import torch
 
 from sonic_tpu_torch import golden, protocol, serial
 from sonic_tpu_torch import golden_protocol as gp
-from sonic_tpu_torch.circuit import example_circuit_2
+from sonic_tpu_torch.circuit import example_circuit_2, random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
 from sonic_tpu_torch.curve.group import Affine
 from sonic_tpu_torch.fields import limb, mont_mul
@@ -124,3 +125,39 @@ def test_pinned_example2_proof_on_the_card(dev):
     assert mont_mul.launches > 0 and bucket_acc.launches > 0
     assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
     assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
+
+
+def test_prove_batch_on_the_card_equals_the_cpu(dev):
+    """B=3, n=3, q=2 (the CPU test's shapes): the same proof bytes on the
+    card as on the CPU, through both kernels."""
+    rng = random.Random(77)
+    host_srs = gp.SRS.new(26, x=rng.randrange(2, gp.P), alpha=rng.randrange(2, gp.P))
+    pairs = [random_circuit(rng, n=3, q=2) for _ in range(3)]
+    rnds = [gp.Randomness.generate(rng, m=2) for _ in pairs]
+
+    def run(device):
+        return protocol.prove_batch(
+            SRS.from_host(host_srs, device=device),
+            [DeviceAssignment.from_host(a, device=device) for _, a in pairs],
+            [DeviceCircuit.from_host(c, device=device) for c, _ in pairs],
+            rnds,
+        )
+
+    mont_mul.launches = bucket_acc.launches = 0
+    got = run(dev)
+    assert mont_mul.launches > 0 and bucket_acc.launches > 0
+    want = run("cpu")
+    assert [serial.proof_to_bytes(p) for p, _ in got] == [serial.proof_to_bytes(p) for p, _ in want]
+
+
+def test_full_srs_new_on_the_card_equals_the_cpu(dev):
+    """SRS.new(h_mode="full") at d=8: all four tables (G2 over Fq2) equal
+    limb for limb to the CPU's."""
+    d, x, alpha = 8, 987654321, 123456789
+    mont_mul.launches = 0
+    got = SRS.new(d, x, alpha, h_mode="full", device=dev)
+    assert mont_mul.launches > 0
+    want = SRS.new(d, x, alpha, h_mode="full", device="cpu")
+    for name in ("g_x", "g_ax", "h_x", "h_ax"):
+        for a, b in zip(getattr(got, name), getattr(want, name)):
+            assert torch.equal(a.cpu(), b), name

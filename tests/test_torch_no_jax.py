@@ -1,13 +1,16 @@
 """PyTorch port: it runs without jax, and its host copies stay copies.
 
 (a) A fresh interpreter imports sonic_tpu_torch, proves and verifies the
-    pinned example2 vector and runs the example CLI on a random circuit;
+    pinned example2 vector, runs the example CLI on a random circuit,
+    proves a batch of two, builds a full SRS and round-trips it through a
+    checkpoint, and proves example2 with the Fiat-Shamir device prover;
     afterwards neither jax nor sonic_tpu is in sys.modules.
 (b) Each host module the port carries as a JAX-free copy matches its
     original in sonic_tpu line for line, apart from import lines and the
     docstring that marks it a copy. native.py may differ only in
-    `_find_lib`; serial.py holds a subset of the original's top-level
-    definitions, each unchanged.
+    `_find_lib`; serial.py and fiat_shamir.py hold a subset of the
+    original's top-level definitions, each unchanged, beside the functions
+    they rewrite for torch.
 """
 import ast
 import os
@@ -19,9 +22,9 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX_SCRIPT = r"""
-import json, sys
-from sonic_tpu_torch import golden_protocol as gp, protocol, serial
-from sonic_tpu_torch.circuit import example_circuit_2
+import json, os, random, sys, tempfile
+from sonic_tpu_torch import fiat_shamir, golden_protocol as gp, protocol, serial
+from sonic_tpu_torch.circuit import example_circuit_2, random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
 from sonic_tpu_torch.srs import SRS
 from sonic_tpu_torch import example
@@ -36,6 +39,26 @@ proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment, devic
 assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
 assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
 assert example.main(["--device", "cpu", "--n", "6", "--q", "2", "--seed", "3"]) == 0
+
+rng = random.Random(5)
+pairs = [random_circuit(rng, n=1, q=1) for _ in range(2)]
+rnds = [gp.Randomness.generate(rng, m=1) for _ in pairs]
+host_srs = gp.SRS.new(16, x=rng.randrange(2, gp.P), alpha=rng.randrange(2, gp.P))
+srs = SRS.from_host(host_srs, device="cpu")
+dcs = [DeviceCircuit.from_host(c, device="cpu") for c, _ in pairs]
+das = [DeviceAssignment.from_host(a, device="cpu") for _, a in pairs]
+batch = protocol.prove_batch(srs, das, dcs, rnds)
+for dc, (p, o) in zip(dcs, batch):
+    assert protocol.verify(srs, dc, p, o.y, o.z, o.yzs)
+nizk = fiat_shamir.prove_device(srs, das[0], dcs[0], [5, 6, 7, 8])
+assert nizk == fiat_shamir.prove(host_srs, pairs[0][1], pairs[0][0], [5, 6, 7, 8])
+assert fiat_shamir.verify(host_srs, pairs[0][0], nizk)
+
+full = SRS.new(4, x=7, alpha=11, h_mode="full", device="cpu")
+assert full.to_host() == gp.SRS.new(4, x=7, alpha=11)
+with tempfile.TemporaryDirectory() as tmp:
+    serial.save_srs(os.path.join(tmp, "srs.npz"), full)
+    assert serial.load_srs(os.path.join(tmp, "srs.npz"), device="cpu").to_host() == full.to_host()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sonic_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -91,9 +114,23 @@ def test_host_copy_matches_its_original(path):
     assert doc.endswith(ast.get_docstring(otree, clean=False))
 
 
-def test_serial_copy_is_a_subset_of_the_original():
-    osrc, otree = _module("sonic_tpu/serial.py")
-    csrc, ctree = _module("sonic_tpu_torch/serial.py")
+# path -> (definitions the copy must hold, definitions it rewrites for torch)
+SUBSET_COPIES = {
+    "serial.py": (
+        ("fr_to_bytes", "fr_from_bytes", "g1_to_bytes", "g1_from_bytes", "g2_to_bytes",
+         "_fq2_sqrt", "g2_from_bytes", "proof_to_bytes", "proof_from_bytes"),
+        ("save_srs", "load_srs"),
+    ),
+    "fiat_shamir.py": (
+        ("Transcript", "_absorb_circuit", "NizkProof", "prove", "verify"),
+        ("prove_device", "_device_circuit_to_host"),
+    ),
+}
+
+
+def _assert_subset_copy(path):
+    osrc, otree = _module(os.path.join("sonic_tpu", path))
+    csrc, ctree = _module(os.path.join("sonic_tpu_torch", path))
 
     def segments(src, tree):
         out = {}
@@ -108,8 +145,16 @@ def test_serial_copy_is_a_subset_of_the_original():
         return out
 
     orig, copy = segments(osrc, otree), segments(csrc, ctree)
-    for name in ("fr_to_bytes", "fr_from_bytes", "g1_to_bytes", "g1_from_bytes",
-                 "proof_to_bytes", "proof_from_bytes"):
-        assert name in copy
+    kept, rewritten = SUBSET_COPIES[path]
+    assert set(kept) <= set(copy) and set(rewritten) <= set(copy) & set(orig)
     for name, seg in copy.items():
-        assert orig.get(name) == seg, name
+        if name not in rewritten:
+            assert orig.get(name) == seg, name
+
+
+def test_serial_copy_is_a_subset_of_the_original():
+    _assert_subset_copy("serial.py")
+
+
+def test_fiat_shamir_copy_is_a_subset_of_the_original():
+    _assert_subset_copy("fiat_shamir.py")

@@ -157,3 +157,23 @@ def test_breakdown_phase_timers_leave_the_proof_unchanged():
     one = FR.from_int([3, 4])
     wall, events, busy, rows = breakdown.device_profile(lambda: FR.to_int(one), cpu)
     assert wall > 0 and events == 0 and busy == 0 and rows == []
+
+
+def test_hsc_prove_matches_golden_and_verifies():
+    """signature.hsc_prove (the helper alone, as sonic_tpu exports it) equals
+    the golden hscProve at n=2, q=2 with the same (y_j, z_j), u and v;
+    hsc_verify accepts it and rejects a wrong u (tests/test_signature.py's
+    shapes)."""
+    rng = random.Random(502)
+    circuit, _ = random_circuit(rng, n=2, q=2)
+    host_srs = gp.SRS.new(7 * 2 + 5, x=rng.randrange(2, gp.P), alpha=rng.randrange(2, gp.P))
+    srs = SRS.from_host(host_srs, device="cpu")
+    dc = DeviceCircuit.from_host(circuit, device="cpu")
+    yzs = [(rng.randrange(2, gp.P), rng.randrange(2, gp.P)) for _ in range(2)]
+    u, v = rng.randrange(2, gp.P), rng.randrange(2, gp.P)
+    yzs_m = [(FR.from_int(y), FR.from_int(z)) for y, z in yzs]
+    got = signature.hsc_prove(srs, dc, yzs_m, FR.from_int(u), FR.from_int(v))
+    assert got == gp.hsc_prove(host_srs, gp.s_poly(circuit.weights), yzs, u, v)
+    assert signature.hsc_verify(srs, dc, yzs, got)
+    bad = gp.HscProof(got.hsc_s, got.hsc_w, got.hsc_qv, got.hsc_c, (u + 1) % gp.P, v)
+    assert not signature.hsc_verify(srs, dc, yzs, bad)
