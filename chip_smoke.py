@@ -55,7 +55,24 @@ torch.cuda.synchronize():
               circuit, prove_device timed, equal to protocol.prove with the
               Randomness of its own derived challenges, verify True;
               its kernel-2 launches and the first kernel-1 launch of each
-              operand shape against the plain versions.
+              operand shape against the plain versions;
+  9. multi-rank  WORLD = 2 ranks (torch.multiprocessing, spawn, a file://
+              store), NCCL with a card per rank, else gloo with both ranks
+              on cuda:0 (NCCL refuses two ranks on one GPU). Each rank runs
+              SRS.new(mesh) at d = 7n+20 (verifier mode; its G1 tables'
+              digest equal to phase 5's SRS), prove(mesh) on phase 5's
+              circuit and randomness, one warm-up and one timed, both
+              byte-equal to phase 5's proof, verify True, the t product
+              through the sharded four-step NTT (N = 8192 = 64 x 128),
+              prove_batch(mesh) on phase 7's circuits, byte-equal to phase
+              7's proofs, and SRS.new(mesh) at d = 2^16 (full; all four
+              tables' digest equal to phase 6's); seconds in the
+              collectives (sync timers, breakdown.PARALLEL_PHASES) of the
+              timed prove and of each SRS.new. Each rank counts its launches inside its own Path
+              and fails if a kernel was never launched; rank 0 holds its
+              first kernel-2 launch and the first kernel-1 launch of each
+              operand shape against the plain versions. Two ranks on one
+              card measure that the path runs and is right, not scaling.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -63,8 +80,9 @@ additions (nonzero digits on finite points), 11 Fq products of 2 * 12^2
 word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
-Every path (phases 5-8) runs with both launch counters set to 0 just before
-it and read just after, and fails if a kernel it uses was never launched.
+Every path (phases 5-9) runs with both launch counters set to 0 just before
+it and read just after, and fails if a kernel it uses was never launched;
+phase 9's launches are summed over its ranks.
 Every comparison is exact (all values are integers); a failed one raises.
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -76,6 +94,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import pickle
 import random
 import statistics
 import subprocess
@@ -97,6 +116,7 @@ MAIN_N, MAIN_Q, PROVE_RUNS = 1024, 64, 3  # phase 5 (and 7's n, 8's circuit)
 SRS_D, SRS_ROWS_CHECKED, LADDER_ROWS = 1 << 16, 64, 4096  # phase 6
 BATCH_B, BATCH_Q = 64, 8  # phase 7
 PLAIN_BUDGET_S = 120.0  # phase 7: time for kernel 2 against bucket_sums_plain
+WORLD, WORLD_TIMEOUT_S = 2, 600  # phase 9
 
 
 def log(msg: str) -> None:
@@ -124,15 +144,25 @@ def srs_digest(srs) -> str:
     return h.hexdigest()
 
 
+def table_digest(srs, names=("g_x", "g_ax", "h_x", "h_ax")) -> str:
+    """sha256 of a device SRS's tables: x, y limbs and infinity flags."""
+    h = hashlib.sha256()
+    for name in names:
+        for a in getattr(srs, name):
+            h.update(a.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 class Path:
     """Drives one path of the port: both launch counters are set to 0 on
     entry and read on exit. It keeps the inputs of every kernel-2 launch
-    and of the first kernel-1 launch of each operand shape, and counts
-    kernel-1 launches by shape, so that the kernels can be held against
-    their plain versions afterwards."""
+    (of the first `keep_sums`, when given) and of the first kernel-1
+    launch of each operand shape, and counts kernel-1 launches by shape,
+    so that the kernels can be held against their plain versions
+    afterwards."""
 
-    def __init__(self, name: str, uses=("mont_mul", "bucket_sums")):
-        self.name, self.uses = name, uses
+    def __init__(self, name: str, uses=("mont_mul", "bucket_sums"), keep_sums: int | None = None):
+        self.name, self.uses, self.keep_sums = name, uses, keep_sums
         self.sums, self.products, self.shape_count = [], {}, {}
 
     def __enter__(self):
@@ -142,7 +172,8 @@ class Path:
         self._real = real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
 
         def sums_keep(pts, plan):
-            self.sums.append((pts, plan))
+            if self.keep_sums is None or len(self.sums) < self.keep_sums:
+                self.sums.append((pts, plan))
             return real_sums(pts, plan)
 
         def mul_keep(a, b, spec):
@@ -166,6 +197,105 @@ class Path:
             if never:
                 raise AssertionError(f"{self.name}: kernel(s) {never} never launched: {self.launches}")
         return False
+
+
+def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
+    """Phase 9, one rank: the sharded SRS, prove and prove_batch against
+    the references in tmp/refs.pkl (written by this script's parent
+    process); writes tmp/rank<r>.json."""
+    import torch
+
+    from sonic_tpu_torch import breakdown, protocol, serial
+    from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
+    from sonic_tpu_torch.fields import mont_mul
+    from sonic_tpu_torch.msm import bucket_acc
+    from sonic_tpu_torch.parallel import distributed, ntt_sharded
+    from sonic_tpu_torch.srs import SRS
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    distributed.initialize(backend=backend, init_method=f"file://{tmp}/store", world_size=world, rank=rank)
+    mesh = distributed.global_mesh()
+    dev = torch.device(DEVICE)  # the rank's card after initialize: LOCAL_RANK modulo the count
+    with open(os.path.join(tmp, "refs.pkl"), "rb") as f:
+        refs = pickle.load(f)
+    n, q, d, x, alpha, circuit, assignment, rnd, proof_bytes, g1_digest = refs["main"]
+    full_d, sx, salpha, full_digest = refs["full"]
+    bpairs, brnds, bbytes = refs["batch"]
+    dc = DeviceCircuit.from_host(circuit, device=dev)
+    da = DeviceAssignment.from_host(assignment, device=dev)
+    bdcs = [DeviceCircuit.from_host(c_, device=dev) for c_, _ in bpairs]
+    bdas = [DeviceAssignment.from_host(a_, device=dev) for _, a_ in bpairs]
+    out = {"rank": rank, "device": f"{DEVICE}:{torch.cuda.current_device()}"}
+
+    def timed(key, fn, coll=None):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if coll is None:
+            res = fn()
+        else:
+            with breakdown.phase_timers(dev, breakdown.PARALLEL_PHASES) as acc:
+                res = fn()
+            out[f"coll_{coll}"] = {k: v[:2] for k, v in acc.items()}
+        torch.cuda.synchronize(dev)
+        out[key] = time.perf_counter() - t0
+        return res
+
+    sharded_ntts = []
+    real_mul = ntt_sharded.poly_mul_ntt_sharded
+
+    def counted(a, b, m):
+        sharded_ntts.append(1)
+        return real_mul(a, b, m)
+
+    ntt_sharded.poly_mul_ntt_sharded = counted
+    # the full SRS goes last: its kernel-1 inputs, kept by the Path, are the largest
+    with Path("multi_rank", keep_sums=1) as path:
+        srs = timed("t_srs_v", lambda: SRS.new(d, x, alpha, h_mode="verifier", n_hints=[n], device=dev,
+                                               mesh=mesh), "srs_v")
+        if table_digest(srs, ("g_x", "g_ax")) != g1_digest:
+            raise AssertionError(f"phase 9 rank {rank}: SRS.new(mesh) verifier G1 tables differ from phase 5's")
+        for key, coll in (("t_warm", None), ("t_prove", "prove")):
+            proof, oracle = timed(key, lambda: protocol.prove(srs, da, dc, rnd, mesh=mesh), coll)
+            if serial.proof_to_bytes(proof) != proof_bytes:
+                raise AssertionError(f"phase 9 rank {rank}: prove(mesh) differs from phase 5's proof")
+        out["sharded_ntts"] = len(sharded_ntts) // 2
+        if not protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs):
+            raise AssertionError(f"phase 9 rank {rank}: verify returned False")
+        batch = timed("t_batch", lambda: protocol.prove_batch(srs, bdas, bdcs, brnds, mesh=mesh))
+        if [serial.proof_to_bytes(p) for p, _ in batch] != bbytes:
+            raise AssertionError(f"phase 9 rank {rank}: prove_batch(mesh) differs from phase 7's proofs")
+        del batch
+        full = timed("t_srs_full", lambda: SRS.new(full_d, sx, salpha, h_mode="full", device=dev,
+                                                   mesh=mesh), "srs_full")
+        if table_digest(full) != full_digest:
+            raise AssertionError(f"phase 9 rank {rank}: SRS.new(mesh) full tables differ from phase 6's")
+        del full
+    out["launches"] = path.launches
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["k1_err"], out["k2_err"] = [], []
+    # rank 0's checks below need the card's memory: the other ranks hand
+    # theirs back first (their Paths keep the inputs of every shape)
+    del srs, dc, da, bdcs, bdas, proof, oracle
+    if rank != 0:
+        del path
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        pts, plan = path.sums.pop()
+        got, want = bucket_acc.bucket_sums(pts, plan), bucket_acc.bucket_sums_plain(pts, plan)
+        out["k2_err"].append(max(int((g - w).abs().max()) for g, w in zip(got, want)))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("phase 9 rank 0: kernel 2 differs from bucket_sums_plain")
+        while path.products:  # each shape's inputs are let go once checked
+            a, b, spec = path.products.popitem()[1]
+            got, want = mont_mul.mont_mul(a, b, spec), mont_mul.mont_mul_plain(a, b, spec)
+            out["k1_err"].append(int((got - want).abs().max()) if got.numel() else 0)
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase 9 rank 0: kernel 1 {spec.name} {tuple(a.shape)} x "
+                                     f"{tuple(b.shape)} differs from mont_mul_plain")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
 
 
 def main() -> int:
@@ -545,6 +675,7 @@ def main() -> int:
         log(f"phase 6 {vname}: SRS.new(h_mode='full') d={vec['d']} on the card ({t_v:.2f} s) "
             "gives the pinned srs_sha256")
     check_products(srs_path, "phase 6")
+    full_digest = table_digest(full)
     del full, srs_path
 
     # -- phase 7: batch proving, BASELINE config 5 at n = 2^10 ------------------------------------
@@ -624,7 +755,7 @@ def main() -> int:
     log(f"phase 7 kernel 2: {len(checked)} of the batch's {len(sums)} bucket-sums launches equal "
         f"to bucket_sums_plain ({which}: launches {sorted(checked)}; "
         f"{time.perf_counter() - t0:.1f} s)")
-    del batch_path, batch
+    del batch_path, batch, sums
 
     # -- phase 8: Fiat-Shamir device prover -------------------------------------------------------
     vec = vectors["example2"]
@@ -658,7 +789,64 @@ def main() -> int:
     for i, (pts, plan) in enumerate(fs_path.sums):
         k2_err.append(check_sums(pts, plan, f"phase 8 launch {i} {plan.shape} (M, W, B) over "
                                             f"N={plan.npoints}", time_it=False)[0])
-    del fs_path
+    del fs_path, pts, plan
+
+    # -- phase 9: multi-rank ------------------------------------------------------------------
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    import torch.multiprocessing as mp
+
+    # the ranks share the card with this process: hand back its allocator's cache
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    log(f"phase 9: this process's reserved device memory {reserved / 2**30:.1f} GiB -> "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB before the ranks start")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {
+            "main": (n, q, d, x, alpha, circuit, assignment, rnd, serial.proof_to_bytes(proof2),
+                     table_digest(srs, ("g_x", "g_ax"))),
+            "full": (SRS_D, sx, salpha, full_digest),
+            "batch": (bpairs, brnds, bbytes),
+        }
+        with open(os.path.join(tmp, "refs.pkl"), "wb") as f:
+            pickle.dump(refs, f)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(multi_rank, args=(WORLD, backend, tmp), nprocs=WORLD, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > WORLD_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"phase 9: the ranks did not finish in {WORLD_TIMEOUT_S} s")
+        t_world = time.perf_counter() - t0
+        ranks = []
+        for r in range(WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    paths["multi_rank"] = {k: sum(rk["launches"][k] for rk in ranks) for k in ("mont_mul", "bucket_sums")}
+    k1_err.extend(ranks[0]["k1_err"])
+    k2_err.extend(ranks[0]["k2_err"])
+    r0 = ranks[0]
+    how = ("gloo's own CUDA collectives, which pass through host memory; the port stages nothing"
+           if backend == "gloo" else "NCCL")
+    log(f"phase 9 multi-rank: backend {backend}, world {WORLD}, devices "
+        f"{[rk['device'] for rk in ranks]} ({how}); {t_world:.1f} s for the ranks, start-up included")
+    log(f"phase 9 checks on every rank: SRS.new(mesh) verifier d={d} G1 tables = phase 5's, full "
+        f"d={SRS_D} all four tables = phase 6's; prove(mesh) n={n} q={q} = phase 5's bytes (warm-up "
+        f"and timed), verify True, sharded four-step NTT calls a prove {r0['sharded_ntts']}; "
+        f"prove_batch(mesh) B={B} = phase 7's {B} proofs; kernel launches by rank "
+        f"{[rk['launches'] for rk in ranks]}")
+    log(f"phase 9 rank 0 ({card}; {WORLD} ranks sharing one card: no scaling figure): SRS.new(mesh) "
+        f"verifier d={d} {r0['t_srs_v']:.3f} s, full d={SRS_D} {r0['t_srs_full']:.3f} s; prove(mesh) "
+        f"warm-up {r0['t_warm']:.3f} s, timed {r0['t_prove']:.3f} s; prove_batch(mesh) "
+        f"{r0['t_batch']:.3f} s; peak device memory by rank "
+        f"{[round(rk['peak_gib'], 1) for rk in ranks]} GiB")
+    for what in ("prove", "srs_v", "srs_full"):
+        rows = ", ".join(f"{k} {v[0]:.4f} s in {v[1]} calls" for k, v in r0[f"coll_{what}"].items())
+        log(f"phase 9 rank 0 collectives in the timed {what}: {rows}")
+    log(f"phase 9 rank 0 kernels: first kernel-2 launch equal to bucket_sums_plain (max abs err "
+        f"{max(r0['k2_err'])}), first kernel-1 launch of each of {len(r0['k1_err'])} operand shapes "
+        f"equal to mont_mul_plain (max abs err {max(r0['k1_err'])})")
 
     def total(kernel):
         return sum(p[kernel] for p in paths.values())
@@ -674,7 +862,7 @@ def main() -> int:
          "launches_by_path": {k: v["bucket_sums"] for k, v in paths.items()},
          "max_abs_err": max(k2_err), "ms": k2_main[0], "plain_ms": k2_main[1],
          "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None},
-    ]}
+    ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "
         f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f})")

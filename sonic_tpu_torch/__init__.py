@@ -16,6 +16,10 @@ Public API (the reference's exports):
     hsc_prove / hsc_verify, commit_poly / open_poly / pcv
     fiat_shamir.prove_device, serial.save_srs / load_srs
 
+Several ranks: `prove`, `prove_batch`, `SRS.new`, `hsc_prove` and the
+commitment functions take `mesh=`, a 1-D DeviceMesh from
+`parallel.distributed.global_mesh()` after `parallel.distributed.initialize()`.
+
 `device=None` is the CUDA card; without one the constructors raise. Pass
 `device="cpu"` to run on the CPU.
 

@@ -14,6 +14,12 @@ Rows that start with "in" are nested inside the phases above them. With
 events, busy seconds, busy share of the wall and busiest kernels are
 printed (on the CPU there are no device events).
 
+Under torchrun (WORLD_SIZE > 1) every rank builds the SRS and proves with
+the mesh of all ranks, the timers cover the collectives too
+(PARALLEL_PHASES), and rank 0 prints:
+
+    torchrun --nproc_per_node=K -m sonic_tpu_torch.breakdown --gates 1024 --q 64
+
 The timers replace module attributes for the duration of one prove and put
 them back afterwards; they add a device synchronize per call.
 """
@@ -35,6 +41,8 @@ from .circuit import random_circuit
 from .constraints import DeviceAssignment, DeviceCircuit
 from .fields import mont_mul
 from .msm import pippenger
+from .parallel import distributed, ntt_sharded
+from .parallel import mesh as pmesh
 from .srs import SRS
 
 # (module, attribute, label): the prover's phase functions as the prover
@@ -74,6 +82,15 @@ BATCH_PHASES = [
     (protocol, "open_poly_batched", "batch: openings (zkP_3, helper)"),
 ]
 
+# the collectives of a call with a mesh (parallel/), as their callers look
+# them up; nested in the phases above, and a collective's seconds include
+# waiting for the slowest rank
+PARALLEL_PHASES = [
+    (pmesh, "all_gather_rows", "in comms: all_gather (MSM, SRS rows)"),
+    (ntt_sharded, "all_gather_rows", "in comms: all_gather (NTT output)"),
+    (ntt_sharded, "all_to_all_rows", "in comms: all_to_all_single (NTT)"),
+]
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -84,7 +101,8 @@ def _sync(device: torch.device) -> None:
 def phase_timers(device: torch.device, phases=PHASES):
     """Yields {label: [seconds, calls, kernel-1 launches]}, filled by the
     calls made inside the block to the functions of `phases` (PHASES +
-    BATCH_PHASES for prove_batch)."""
+    BATCH_PHASES for prove_batch, PARALLEL_PHASES for the collectives of a
+    call with a mesh)."""
     acc: dict = collections.defaultdict(lambda: [0.0, 0, 0])
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in phases]
 
@@ -145,7 +163,8 @@ def device_profile(fn, device: torch.device, top: int = 20):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--device", default="cuda", help="torch device: cuda or cpu")
-    parser.add_argument("--n", type=int, default=1024, help="gates of the random circuit")
+    # --gates: torchrun (torch 2.11) rejects --n as an ambiguous abbreviation of its own options
+    parser.add_argument("--n", "--gates", type=int, default=1024, help="gates of the random circuit")
     parser.add_argument("--q", type=int, default=64, help="its linear constraints")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--reps", type=int, default=3, help="timed proves")
@@ -160,41 +179,45 @@ def main(argv=None) -> int:
     circuit, assignment = random_circuit(rng, n=args.n, q=args.q)
     d = 7 * args.n + 20
     x, alpha = rng.randrange(2, gp.P), rng.randrange(2, gp.P)
-    srs = SRS.new(d, x, alpha, h_mode="verifier", n_hints=[args.n], device=device)
-    dc = DeviceCircuit.from_host(circuit, device=device)
-    da = DeviceAssignment.from_host(assignment, device=device)
-    rnd = gp.Randomness.generate(rng, m=args.q)
+    with distributed.launched_mesh() as mesh:
+        # with a mesh, every rank runs everything and rank 0 reports
+        say = print if mesh is None or mesh.get_local_rank() == 0 else (lambda *a, **k: None)
+        srs = SRS.new(d, x, alpha, h_mode="verifier", n_hints=[args.n], device=device, mesh=mesh)
+        dc = DeviceCircuit.from_host(circuit, device=device)
+        da = DeviceAssignment.from_host(assignment, device=device)
+        rnd = gp.Randomness.generate(rng, m=args.q)
 
-    def prove():
-        return protocol.prove(srs, da, dc, rnd)
+        def prove():
+            return protocol.prove(srs, da, dc, rnd, mesh=mesh)
 
-    prove()  # warm-up
-    times = []
-    for _ in range(args.reps):
-        _sync(device)
-        t0 = time.perf_counter()
-        prove()
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    print(f"n={args.n} q={args.q} d={d} on {device}: prove s {times} "
-          f"median {statistics.median(times)}", flush=True)
+        prove()  # warm-up
+        times = []
+        for _ in range(args.reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            prove()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        ranks = f", {mesh.size()} ranks" if mesh is not None else ""
+        say(f"n={args.n} q={args.q} d={d} on {device}{ranks}: prove s {times} "
+            f"median {statistics.median(times)}", flush=True)
 
-    with phase_timers(device) as acc:
-        _sync(device)
-        t0 = time.perf_counter()
-        prove()
-        _sync(device)
-        wall = time.perf_counter() - t0
-    print(f"prove with phase timers: {wall} s", flush=True)
-    print("\n".join(phase_table(acc)), flush=True)
+        with phase_timers(device, PHASES + (PARALLEL_PHASES if mesh is not None else [])) as acc:
+            _sync(device)
+            t0 = time.perf_counter()
+            prove()
+            _sync(device)
+            wall = time.perf_counter() - t0
+        say(f"prove with phase timers: {wall} s", flush=True)
+        say("\n".join(phase_table(acc)), flush=True)
 
-    if args.profiler:
-        pwall, nev, busy, rows = device_profile(prove, device)
-        share = 100 * busy / pwall
-        print(f"prove under torch.profiler: wall {pwall} s; device events {nev}, "
-              f"busy {busy} s ({share:.1f} % of wall)", flush=True)
-        for name, calls, ms in rows:
-            print(f"  {ms:10.3f} ms {calls:7d}x  {name[:110]}", flush=True)
+        if args.profiler:
+            pwall, nev, busy, rows = device_profile(prove, device)
+            share = 100 * busy / pwall
+            say(f"prove under torch.profiler: wall {pwall} s; device events {nev}, "
+                f"busy {busy} s ({share:.1f} % of wall)", flush=True)
+            for name, calls, ms in rows:
+                say(f"  {ms:10.3f} ms {calls:7d}x  {name[:110]}", flush=True)
     return 0
 
 

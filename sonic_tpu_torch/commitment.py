@@ -5,7 +5,9 @@ The bounded-max-degree shift by X^(d-max) (:31-33) is an index offset into
 the merged SRS tables, so every commit or opening is a table slice feeding
 one Pippenger MSM. The device functions return their MSMs before the
 window combine (`pippenger.WindowTotals`); the prover finishes all of a
-proof's MSMs with one `pippenger.combine_windows`.
+proof's MSMs with one `pippenger.combine_windows`. With `mesh`, each MSM
+shards its points over the ranks (`pippenger.msm_windows`); divisions and
+builds run replicated on every rank, as in the reference.
 
 Reference conventions kept:
   - commit uses the alpha tables; the shifted polynomial must not have a
@@ -48,7 +50,8 @@ def _check_hole(c0):
         )
 
 
-def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True) -> WindowTotals:
+def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True,
+                mesh=None) -> WindowTotals:
     """Commit(info, max, f(X)) -> F (CommitmentScheme.hs:20-33): MSM of f's
     coefficients against the g^(alpha x^(d-max+e)) rows."""
     lo = f.offset + srs.d - maxm  # lowest shifted exponent
@@ -57,20 +60,20 @@ def commit_poly(srs: SRS, maxm: int, f: Laurent, check_hole: bool = True) -> Win
     if check_hole and lo <= 0 <= hi:
         _check_hole(f.coeffs[-lo])
     pts = _slice_table(srs.g_ax, lo + srs.d, f.length)
-    return msm_windows(pts, limb.from_mont(f.coeffs, FR))
+    return msm_windows(pts, limb.from_mont(f.coeffs, FR), mesh=mesh)
 
 
-def open_poly(srs: SRS, z, f: Laurent):
+def open_poly(srs: SRS, z, f: Laurent, mesh=None):
     """Open(info, F, z, f(X)) -> (f(z), W) (CommitmentScheme.hs:36-48).
     z: Fr element (Montgomery limbs). Returns (f(z) limbs, W)."""
     fz, w = div_by_linear(f, z)
     _check_range("openPoly", srs, w.offset, w.offset + w.length - 1)
     pts = _slice_table(srs.g_x, w.offset + srs.d, w.length)
-    return fz, msm_windows(pts, limb.from_mont(w.coeffs, FR))
+    return fz, msm_windows(pts, limb.from_mont(w.coeffs, FR), mesh=mesh)
 
 
 def commit_poly_batched(srs: SRS, maxm: int, offset: int, coeffs,
-                        check_hole: bool = True) -> WindowTotals:
+                        check_hole: bool = True, mesh=None) -> WindowTotals:
     """M commitments sharing one exponent span: coeffs (M, D, L) at a common
     `offset` -> a batch (M,), as ONE batched MSM over one table slice."""
     lo = offset + srs.d - maxm
@@ -79,16 +82,16 @@ def commit_poly_batched(srs: SRS, maxm: int, offset: int, coeffs,
     if check_hole and lo <= 0 <= hi:
         _check_hole(coeffs[:, -lo])
     pts = _slice_table(srs.g_ax, lo + srs.d, coeffs.shape[1])
-    return msm_windows(pts, limb.from_mont(coeffs, FR))
+    return msm_windows(pts, limb.from_mont(coeffs, FR), mesh=mesh)
 
 
-def open_poly_batched(srs: SRS, zs, offset: int, coeffs):
+def open_poly_batched(srs: SRS, zs, offset: int, coeffs, mesh=None):
     """M openings sharing one exponent span: coeffs (M, D, L) at `offset`,
     zs (M, L) -> (fz (M, L), W batch (M,))."""
     fz, w = div_by_linear_batched(offset, coeffs, zs)
     _check_range("openPoly", srs, offset, offset + w.shape[1] - 1)
     pts = _slice_table(srs.g_x, offset + srs.d, w.shape[1])
-    return fz, msm_windows(pts, limb.from_mont(w, FR))
+    return fz, msm_windows(pts, limb.from_mont(w, FR), mesh=mesh)
 
 
 def pcv(srs: SRS, maxm: int, commitment, z: int, v: int, w) -> bool:

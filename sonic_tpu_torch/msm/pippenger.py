@@ -13,7 +13,8 @@ Port of `sonic_tpu/msm/pippenger.py` (G1 and signed digits only):
 `msm_batched` runs M MSMs that share one point table as one plan, one
 kernel launch and one batched tail. `msm_windows` stops before the window
 combine, so a caller with many MSMs (the prover) finishes them all in one
-batched `combine_windows`.
+batched `combine_windows`. With a mesh, each rank takes a slice of the
+points (`msm_windows`).
 
 Window size: c = 6 on CUDA (B = 33 buckets, W = 44 windows), which keeps
 the plain-torch bucket weighted sum short; larger c would cut the scan's
@@ -158,11 +159,35 @@ def _lay_out(scalars_std: torch.Tensor, c):
 
 
 def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                chunks: int | None = None) -> WindowTotals:
+                chunks: int | None = None, mesh=None) -> WindowTotals:
     """The MSMs of `msm` / `msm_batched` up to their window totals: the
     bucket plan, one bucket-sums launch (kernel 2) and the bucket weighted
     sums. `chunks` overrides the plan's chunk count. Finish them with
-    `combine_windows`."""
+    `combine_windows`.
+
+    With `mesh` (a 1-D DeviceMesh, see parallel/mesh.py), rank r runs all
+    of this on its contiguous slice of the points and of every MSM's
+    scalars, and the ranks' window totals are summed in rank order: every
+    rank gets the same totals. c is picked from the whole MSM's length, so
+    every rank's windows line up; a rank whose slice is empty contributes
+    infinity."""
+    if mesh is None:
+        return _windows(points, scalars_std, c, chunks)
+    from ..parallel.mesh import row_span, sum_over_ranks
+
+    if c is None:
+        c = _pick_c(scalars_std.shape[-2], scalars_std.device)
+    lo, hi = row_span(scalars_std.shape[-2], mesh)
+    if lo == hi:
+        W = _signed_digits(scalars_std[..., :0, :], c).shape[-1]
+        mine = WindowTotals(g1.infinity(scalars_std.shape[:-2] + (W,), scalars_std.device), c)
+    else:
+        mine = _windows(Affine(points.x[lo:hi], points.y[lo:hi], points.inf[lo:hi]),
+                        scalars_std[..., lo:hi, :], c, chunks)
+    return sum_over_ranks(mine, mesh)
+
+
+def _windows(points: Affine, scalars_std: torch.Tensor, c, chunks) -> WindowTotals:
     digits, c, nb = _lay_out(scalars_std, c)
     sums = bucket_sums(points, make_plan(points.inf, digits, nb, chunks))
     if scalars_std.dim() == 2:
@@ -171,14 +196,15 @@ def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
 
 
 def msm(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-        chunks: int | None = None) -> Jacobian:
+        chunks: int | None = None, mesh=None) -> Jacobian:
     """Sum_i scalars[i] * points[i]. points: Affine batch (N,);
     scalars_std: (N, 16) Fr limbs in STANDARD form. Returns one Jacobian."""
-    return combine_windows([msm_windows(points, scalars_std, c, chunks)])[0]
+    return combine_windows([msm_windows(points, scalars_std, c, chunks, mesh)])[0]
 
 
 def msm_batched(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                chunks: int | None = None) -> Jacobian:
+                chunks: int | None = None, mesh=None) -> Jacobian:
     """M independent MSMs SHARING one point table: scalars (M, N, 16) ->
-    Jacobian batch (M,). One plan, one kernel launch and one batched tail."""
-    return msm(points, scalars_std, c, chunks)
+    Jacobian batch (M,). One plan, one kernel launch and one batched tail
+    (per rank, with `mesh`)."""
+    return msm(points, scalars_std, c, chunks, mesh)

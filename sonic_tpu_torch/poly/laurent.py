@@ -10,6 +10,7 @@ coeffs: (D, 16) int64 Montgomery-form Fr limbs. offset: int.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -109,14 +110,31 @@ def _conv_coeffs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _NTT_THRESHOLD = 64 * 64
 
 
-def mul(p: Laurent, q: Laurent) -> Laurent:
-    """Polynomial product: schoolbook below _NTT_THRESHOLD pairwise
-    products, NTT at or above it."""
-    if p.length * q.length >= _NTT_THRESHOLD:
+def _ntt_threshold() -> int:
+    """Pairwise-product count at which NTT multiplication is used: the
+    reference's rule, overridable through SONIC_TPU_NTT_THRESHOLD (read on
+    every call, as the JAX package reads it), so small runs can take the
+    NTT and the sharded four-step NTT paths."""
+    v = os.environ.get("SONIC_TPU_NTT_THRESHOLD")
+    return int(v) if v else _NTT_THRESHOLD
+
+
+def mul(p: Laurent, q: Laurent, mesh=None) -> Laurent:
+    """Polynomial product: schoolbook below `_ntt_threshold()` pairwise
+    products, NTT at or above it. With `mesh`, the NTT is the four-step
+    one sharded over the ranks (parallel/ntt_sharded.py) when its size
+    splits over them, else the single-rank one."""
+    offset = p.offset + q.offset
+    if p.length * q.length >= _ntt_threshold():
+        if mesh is not None:
+            from ..parallel.ntt_sharded import poly_mul_ntt_sharded, splittable
+
+            if splittable(p.length + q.length - 1, mesh.size()):
+                return Laurent(offset, poly_mul_ntt_sharded(p.coeffs, q.coeffs, mesh))
         from .ntt import poly_mul_ntt
 
-        return Laurent(p.offset + q.offset, poly_mul_ntt(p.coeffs, q.coeffs))
-    return Laurent(p.offset + q.offset, _conv_coeffs(p.coeffs, q.coeffs))
+        return Laurent(offset, poly_mul_ntt(p.coeffs, q.coeffs))
+    return Laurent(offset, _conv_coeffs(p.coeffs, q.coeffs))
 
 
 def _eval(coeffs: torch.Tensor, z: torch.Tensor, offset: int) -> torch.Tensor:
@@ -206,7 +224,7 @@ def add_batched(offset_a: int, a: torch.Tensor, offset_b: int, b: torch.Tensor):
 
 def mul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, Da, L) x (M, Db, L) -> (M, Da+Db-1, L); NTT at the threshold."""
-    if a.shape[1] * b.shape[1] >= _NTT_THRESHOLD:
+    if a.shape[1] * b.shape[1] >= _ntt_threshold():
         from .ntt import poly_mul_ntt
 
         return poly_mul_ntt(a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)

@@ -52,7 +52,8 @@ from .signature import hsc_assemble, hsc_checks, hsc_prove_device
 from .srs import SRS
 
 
-def _prove_compute(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m):
+def _prove_compute(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m,
+                   mesh=None):
     """The prover's device compute (zkP_1..3 + helper), with no host reads.
     Returns (allj, scal): a (4m+7,) Jacobian stack [R, T, Wa, Wb, Wt,
     S_j*m, W_j*m, W'_j*m, Q_j*m, C, Qv] and a (2m+4, L) Montgomery scalar
@@ -64,43 +65,44 @@ def _prove_compute(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m,
     their MSMs before the window combine, which runs for all of them in
     one batched pass (pippenger.combine_windows)."""
     parts, scal = _prove_phases(
-        srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m
+        srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m, mesh
     )
     return stack_points(combine_windows(parts)), scal
 
 
-def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m):
+def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m,
+                  mesh=None):
     n = assignment.n
     m = ys_st.shape[0]
     # zkP_1
     r1 = r_x1_poly(assignment, cns_m)
-    commit_r = commit_poly(srs, n, r1)
+    commit_r = commit_poly(srs, n, r1, mesh=mesh)
     # zkP_2
     r_y = r_at_y(r1, y_m)
     s_y = s_at_y(circuit, y_m)
     k_y = k_at_y(circuit, n, y_m)
-    t_y = laurent.mul(r1, laurent.add(r_y, s_y))
+    t_y = laurent.mul(r1, laurent.add(r_y, s_y), mesh)
     const_idx = -t_y.offset
     t_coeffs = t_y.coeffs.clone()
     t_coeffs[const_idx] = limb.sub(t_coeffs[const_idx], k_y, FR)
     t_y = Laurent(t_y.offset, t_coeffs)
     t_const_m = t_coeffs[const_idx]
-    commit_t = commit_poly(srs, srs.d, t_y, check_hole=False)
+    commit_t = commit_poly(srs, srs.d, t_y, check_hole=False, mesh=mesh)
     # zkP_3
-    a_m, wa = open_poly(srs, z_m, r1)
-    b_m, wb = open_poly(srs, limb.mul(y_m, z_m, FR), r1)
-    _, wt = open_poly(srs, z_m, t_y)
+    a_m, wa = open_poly(srs, z_m, r1, mesh)
+    b_m, wb = open_poly(srs, limb.mul(y_m, z_m, FR), r1, mesh)
+    _, wt = open_poly(srs, z_m, t_y, mesh)
     szy_m = evaluate(s_y, z_m)
     # helper (with m = 0 the S_j, W_j, W'_j and Q_j blocks are empty)
     if m == 0:
         su_y = s_at_u_of_y(circuit, u_m)
-        c_j = commit_poly(srs, srs.d, su_y, check_hole=False)
-        _, qv = open_poly(srs, v_m, su_y)
+        c_j = commit_poly(srs, srs.d, su_y, check_hole=False, mesh=mesh)
+        _, qv = open_poly(srs, v_m, su_y, mesh)
         helper = [c_j, qv]
         fzs = s2 = cns_m.new_zeros((0, cns_m.shape[-1]))
     else:
         cms, ws, w2, qs, c_j, qv, fzs, s2 = hsc_prove_device(
-            srs, circuit, ys_st, zs_st, u_m, v_m
+            srs, circuit, ys_st, zs_st, u_m, v_m, mesh
         )
         helper = [cms, ws, w2, qs, c_j, qv]
     parts = [commit_r, commit_t, wa, wb, wt] + helper
@@ -109,9 +111,15 @@ def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, 
 
 
 def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
-          rnd: gp.Randomness) -> tuple[gp.Proof, gp.RndOracle]:
+          rnd: gp.Randomness, mesh=None) -> tuple[gp.Proof, gp.RndOracle]:
     """Protocol.hs:47-109 with explicit randomness; device compute on the
-    assignment's device."""
+    assignment's device.
+
+    With `mesh` (a 1-D DeviceMesh, parallel/mesh.py), every rank calls
+    prove with the same inputs: each commit and opening shards its MSM's
+    points over the ranks, the t(X, y) product takes the sharded four-step
+    NTT where it is large enough, and every rank returns the same proof,
+    equal to the single-rank one."""
     n = assignment.n
     if srs.d < 7 * n:
         raise ValueError(
@@ -129,7 +137,7 @@ def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
     oracle = gp.RndOracle(rnd.y, rnd.z, list(zip(rnd.ys, rnd.zs)))
 
     allj, scal = _prove_compute(
-        srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m
+        srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m, mesh
     )
     # ONE batched affine conversion + ONE fetch for all 4m+7 points and
     # 2m+4 scalars of the proof
@@ -174,7 +182,7 @@ def _check_t_hole(t_consts) -> None:
         )
 
 
-def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list) -> list:
+def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=None) -> list:
     """B independent, shape-identical circuits in one device pipeline
     (BASELINE config 5). Every stage batches over the proof axis: one
     r'(X,1) build, one batched t(X,y) product, batched openings, and the
@@ -183,7 +191,10 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list) -> list
     to_affine and one fetch, as in `prove`.
 
     Equal to B single `prove` calls, byte for byte (hsc u and v reduced
-    mod P as `prove` does). Returns [(Proof, RndOracle)] in input order."""
+    mod P as `prove` does). Returns [(Proof, RndOracle)] in input order.
+    With `mesh`, every commit and opening shards its MSM's points over the
+    ranks, as in `prove`; the batched t product stays on each rank, as in
+    the reference."""
     B = len(assignments)
     n = assignments[0].n
     m = len(rnds[0].ys)
@@ -207,7 +218,7 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list) -> list
     # zkP_1: blinded r'(X, 1) and its commitments
     off_r = -(2 * n + 4)
     r1 = r_x1_batch(asg, cns)  # (B, 3n+5, L)
-    commit_r = commit_poly_batched(srs, n, off_r, r1)
+    commit_r = commit_poly_batched(srs, n, off_r, r1, mesh=mesh)
     # zkP_2: t(X, y_b) = r'(X,1)(r'(X,y_b) + s(X,y_b)) - k(y_b)
     s_y = s_at_y_batch(cir, ys)  # (B, 3n+1, L) at -n
     off_sum, rs = laurent.add_batched(off_r, r_at_y_batch(r1, ys, off_r), -n, s_y)
@@ -215,23 +226,23 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list) -> list
     off_t = off_r + off_sum
     ci = -off_t
     t_c[:, ci] = limb.sub(t_c[:, ci], k_at_y_batch(cir, n, ys), FR)
-    commit_t = commit_poly_batched(srs, srs.d, off_t, t_c, check_hole=False)
+    commit_t = commit_poly_batched(srs, srs.d, off_t, t_c, check_hole=False, mesh=mesh)
     # zkP_3: openings of r' at z_b and y_b z_b, of t at z_b; s(z_b, y_b)
-    a_m, wa = open_poly_batched(srs, zs, off_r, r1)
-    b_m, wb = open_poly_batched(srs, limb.mul(ys, zs, FR), off_r, r1)
-    _, wt = open_poly_batched(srs, zs, off_t, t_c)
+    a_m, wa = open_poly_batched(srs, zs, off_r, r1, mesh)
+    b_m, wb = open_poly_batched(srs, limb.mul(ys, zs, FR), off_r, r1, mesh)
+    _, wt = open_poly_batched(srs, zs, off_t, t_c, mesh)
     szy = laurent.evaluate_batched(-n, s_y, zs)
     # helper: all B*m instances in flat batched pipelines (check_hole=False:
     # s(X, y)'s X^0 and s(u, Y)'s Y^0 coefficients are zero by construction)
     s_flat = s_at_y_batch(cir, ys_h).flatten(0, 1)  # (B*m, 3n+1, L)
     ys_h = ys_h.flatten(0, 1)
-    cms = commit_poly_batched(srs, srs.d, -n, s_flat, check_hole=False)
-    fzs, ws = open_poly_batched(srs, zs_h, -n, s_flat)
-    _, w2 = open_poly_batched(srs, us.repeat_interleave(m, 0), -n, s_flat)
+    cms = commit_poly_batched(srs, srs.d, -n, s_flat, check_hole=False, mesh=mesh)
+    fzs, ws = open_poly_batched(srs, zs_h, -n, s_flat, mesh)
+    _, w2 = open_poly_batched(srs, us.repeat_interleave(m, 0), -n, s_flat, mesh)
     su = s_at_u_batch(cir, us)  # (B, 2n+q+1, L) at -n
-    c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False)
-    s2, qs = open_poly_batched(srs, ys_h, -n, su.repeat_interleave(m, 0))
-    _, qv = open_poly_batched(srs, vs, -n, su)
+    c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False, mesh=mesh)
+    s2, qs = open_poly_batched(srs, ys_h, -n, su.repeat_interleave(m, 0), mesh)
+    _, qv = open_poly_batched(srs, vs, -n, su, mesh)
 
     # ONE window combine, ONE batched to_affine + fetch for all B(4m+7)
     # points, and one fetch for the 4B + 2Bm scalars

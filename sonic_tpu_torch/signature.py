@@ -27,7 +27,7 @@ from .poly.laurent import evaluate
 from .srs import SRS
 
 
-def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m):
+def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m, mesh=None):
     """Device compute of hscProve (Signature.hs:32-72). ys, zs: (m, L)
     Montgomery challenge stacks, m >= 1. Returns (cms, ws, w2, qs, c, qv
     [MSMs before their window combine, pippenger.WindowTotals], fzs, s2
@@ -35,24 +35,25 @@ def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m):
 
     check_hole=False on the commits: s(X, y)'s X^0 coefficient and s(u,
     Y)'s Y^0 coefficient are zero by construction (Constraints.hs:34-53),
-    so the reference's g^alpha panic cannot trigger here."""
-    s_coeffs, cms, fzs, ws = hsc_sj_device(srs, circuit, ys, zs)
-    c, w2, s2, qs, qv = hsc_cu_device(srs, circuit, s_coeffs, u_m, ys, v_m)
+    so the reference's g^alpha panic cannot trigger here. With `mesh`,
+    every MSM shards its points over the ranks."""
+    s_coeffs, cms, fzs, ws = hsc_sj_device(srs, circuit, ys, zs, mesh)
+    c, w2, s2, qs, qv = hsc_cu_device(srs, circuit, s_coeffs, u_m, ys, v_m, mesh=mesh)
     return cms, ws, w2, qs, c, qv, fzs, s2
 
 
-def hsc_sj_device(srs: SRS, circuit: DeviceCircuit, ys, zs):
+def hsc_sj_device(srs: SRS, circuit: DeviceCircuit, ys, zs, mesh=None):
     """The S_j block of hscProve (Signature.hs:40-47): batched s(X, y_j)
     builds, batched commit, batched opening at z_j."""
     n = circuit.n
     s_coeffs = s_at_y_batched(circuit, ys)  # (m, 3n+1, L)
-    cms = commit_poly_batched(srs, srs.d, -n, s_coeffs, check_hole=False)
-    fzs, ws = open_poly_batched(srs, zs, -n, s_coeffs)
+    cms = commit_poly_batched(srs, srs.d, -n, s_coeffs, check_hole=False, mesh=mesh)
+    fzs, ws = open_poly_batched(srs, zs, -n, s_coeffs, mesh)
     return s_coeffs, cms, fzs, ws
 
 
 def hsc_cu_device(srs: SRS, circuit: DeviceCircuit, s_coeffs, u_m, ys, v_m,
-                  su_y=None, c=None):
+                  su_y=None, c=None, mesh=None):
     """The C/u/v block of hscProve (Signature.hs:48-63): commit s(u, Y),
     open the s(X, y_j) batch at u, open s(u, Y) at each y_j and at v.
     su_y / c may be passed in when already computed (the Fiat-Shamir
@@ -62,26 +63,27 @@ def hsc_cu_device(srs: SRS, circuit: DeviceCircuit, s_coeffs, u_m, ys, v_m,
     if su_y is None:
         su_y = s_at_u_of_y(circuit, u_m)
     if c is None:
-        c = commit_poly(srs, srs.d, su_y, check_hole=False)
-    _, w2 = open_poly_batched(srs, u_m.expand(ys.shape), -n, s_coeffs)
+        c = commit_poly(srs, srs.d, su_y, check_hole=False, mesh=mesh)
+    _, w2 = open_poly_batched(srs, u_m.expand(ys.shape), -n, s_coeffs, mesh)
     su_b = su_y.coeffs.unsqueeze(0).expand((m,) + su_y.coeffs.shape)
-    s2, qs = open_poly_batched(srs, ys, su_y.offset, su_b)
-    _, qv = open_poly(srs, v_m, su_y)
+    s2, qs = open_poly_batched(srs, ys, su_y.offset, su_b, mesh)
+    _, qv = open_poly(srs, v_m, su_y, mesh)
     return c, w2, s2, qs, qv
 
 
-def hsc_prove(srs: SRS, circuit: DeviceCircuit, yzs_m, u_m, v_m) -> gp.HscProof:
+def hsc_prove(srs: SRS, circuit: DeviceCircuit, yzs_m, u_m, v_m, mesh=None) -> gp.HscProof:
     """hscProve (Signature.hs:32-72). yzs_m: list of (y, z) Montgomery limb
     pairs; u_m, v_m: Montgomery limbs. Returns a host-form HscProof.
 
     All device work runs first, then the 4m+2 MSMs finish in one window
     combine, and the points come back in ONE batched to_affine and fetch,
-    the 2m evaluations in one more."""
+    the 2m evaluations in one more. With `mesh`, every rank calls it with
+    the same inputs and gets the same proof."""
     m = len(yzs_m)
     if m == 0:
         su_y = s_at_u_of_y(circuit, u_m)
-        c = commit_poly(srs, srs.d, su_y)
-        _, qv = open_poly(srs, v_m, su_y)
+        c = commit_poly(srs, srs.d, su_y, mesh=mesh)
+        _, qv = open_poly(srs, v_m, su_y, mesh)
         c_h, qv_h = msms_to_host([c, qv])
         return gp.HscProof(
             hsc_s=[], hsc_w=[], hsc_qv=qv_h, hsc_c=c_h,
@@ -89,7 +91,7 @@ def hsc_prove(srs: SRS, circuit: DeviceCircuit, yzs_m, u_m, v_m) -> gp.HscProof:
         )
     ys = torch.stack([y for y, _ in yzs_m])  # (m, L)
     zs = torch.stack([z for _, z in yzs_m])
-    cms, ws, w2, qs, c, qv, fzs, s2 = hsc_prove_device(srs, circuit, ys, zs, u_m, v_m)
+    cms, ws, w2, qs, c, qv, fzs, s2 = hsc_prove_device(srs, circuit, ys, zs, u_m, v_m, mesh)
     pts = msms_to_host([cms, ws, w2, qs, c, qv])
     evs = [int(v) for v in FR.to_int(torch.cat([fzs, s2], 0))]
     cms_h, ws_h = pts[:m], pts[m : 2 * m]

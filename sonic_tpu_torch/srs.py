@@ -11,7 +11,10 @@ contiguous slice:
 
 Generation: powers of x by log-depth ladders (limb.powers), then each table
 is a fixed-base windowed multiply (msm/fixed_base.py) and one batched
-affine conversion per group.
+affine conversion per group. With a mesh, every rank computes the powers
+and builds its slice of each table's rows; the slices are gathered, so
+every rank holds the whole tables (commits read arbitrary windows of rows).
+Each step is logged with its seconds under SONIC_TPU_LOG (utils/log.py).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .device import resolve
 from .fields import limb
 from .fields.limb import FR
 from .msm.fixed_base import fixed_base_mul
+from .utils.log import get_logger, phase_timer
 
 
 def _rows(tab: Affine, lo: int, hi: int) -> Affine:
@@ -48,9 +52,11 @@ class SRS:
 
     @classmethod
     def new(cls, d: int, x: int, alpha: int, h_mode: str = "full", n_hints=(),
-            device=None) -> "SRS":
+            device=None, mesh=None) -> "SRS":
         """Trusted setup from the trapdoor (x, alpha), tables on `device`
-        (None: the card).
+        (None: the card). With `mesh` (a 1-D DeviceMesh, parallel/mesh.py),
+        every rank calls it with the same arguments, builds its share of
+        each table's 2d+1 rows and gets the same whole SRS back.
 
         h_mode:
           "full"     - all four tables (the reference's SRS record,
@@ -63,22 +69,31 @@ class SRS:
         if h_mode not in ("full", "verifier"):
             raise ValueError(f"unknown h_mode {h_mode!r}")
         device = resolve(device)
-        x_m = FR.from_int(x, device=device)
-        alpha_m = FR.from_int(alpha, device=device)
-        pos = limb.powers(x_m, FR, d + 1)  # x^0 .. x^d
-        neg = limb.powers(limb.inv(x_m, FR), FR, d + 1)[1:]  # x^-1 .. x^-d
-        exps = torch.cat([neg.flip(0), pos], 0)  # x^-d .. x^d
-        aexps = limb.mul(exps, alpha_m, FR)
-        g_aexps = aexps.clone()
-        g_aexps[d] = 0  # g^alpha is omitted: scalar 0 -> infinity
+        log = get_logger("srs")
         rows = 2 * d + 1
-        scalars = limb.from_mont(torch.cat([exps, g_aexps, aexps], 0), FR)
-        g = g1.to_affine(fixed_base_mul(g1, scalars[: 2 * rows]))
+        with phase_timer(log, "srs.powers", d=d):
+            x_m = FR.from_int(x, device=device)
+            alpha_m = FR.from_int(alpha, device=device)
+            pos = limb.powers(x_m, FR, d + 1)  # x^0 .. x^d
+            neg = limb.powers(limb.inv(x_m, FR), FR, d + 1)[1:]  # x^-1 .. x^-d
+            exps = torch.cat([neg.flip(0), pos], 0)  # x^-d .. x^d
+            aexps = limb.mul(exps, alpha_m, FR)
+            g_aexps = aexps.clone()
+            g_aexps[d] = 0  # g^alpha is omitted: scalar 0 -> infinity
+            scalars = limb.from_mont(torch.cat([exps, g_aexps, aexps], 0), FR)
+            _fence(log, scalars)
+
+        def tables(group, sc):
+            with phase_timer(log, f"srs.{group.name}", rows=rows):
+                t = _tables(group, sc, rows, mesh)
+                _fence(log, t.x)
+            return _rows(t, 0, rows), _rows(t, rows, 2 * rows)
+
+        g_x, g_ax = tables(g1, scalars[: 2 * rows])
         if h_mode == "full":
-            h = g2.to_affine(fixed_base_mul(g2, torch.cat([scalars[:rows], scalars[2 * rows :]], 0)))
-            return cls(d, _rows(g, 0, rows), _rows(g, rows, 2 * rows),
-                       _rows(h, 0, rows), _rows(h, rows, 2 * rows))
-        srs = cls(d, _rows(g, 0, rows), _rows(g, rows, 2 * rows))
+            h_x, h_ax = tables(g2, torch.cat([scalars[:rows], scalars[2 * rows :]], 0))
+            return cls(d, g_x, g_ax, h_x, h_ax)
+        srs = cls(d, g_x, g_ax)
         P = gp.P
         for maxm in set(n_hints) | {d}:
             e = -d + maxm
@@ -159,6 +174,37 @@ class SRS:
                 raise ValueError(f"SRS(h_mode='verifier') holds no h^(alpha x^{e}) row")
             self.h_rows[key] = _g2_row_to_host(self.h_ax, e + self.d)
         return self.h_rows[key]
+
+
+def _fence(log, t: torch.Tensor) -> None:
+    """Wait for the card before a logged phase ends (only when logging)."""
+    if log.mode not in ("", "0", "off", "none") and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _tables(group, scalars: torch.Tensor, rows: int, mesh) -> Affine:
+    """Two tables' standard-form scalars, rows one table after the other
+    (2 rows, L) -> their affine points (2 rows,). With `mesh`, each rank
+    multiplies its slice of each table's rows (zero scalars pad them to a
+    multiple of the world size and give infinity rows, cut off after the
+    gather)."""
+    if mesh is None:
+        return group.to_affine(fixed_base_mul(group, scalars))
+    from .parallel.mesh import all_gather_rows, shard_rows
+
+    L = scalars.shape[-1]
+    two = scalars.reshape(2, rows, L)
+    mine = torch.cat([shard_rows(two[0], mesh), shard_rows(two[1], mesh)], 0)  # (2 per, L)
+    per = mine.shape[0] // 2
+    aff = group.to_affine(fixed_base_mul(group, mine))
+    coord = aff.x.shape[1:]
+    k = aff.x[0].numel()
+    flat = torch.cat([aff.x.reshape(2 * per, k), aff.y.reshape(2 * per, k),
+                      aff.inf.reshape(2 * per, 1).long()], 1)
+    got = all_gather_rows(flat.reshape(1, 2, per, 2 * k + 1), mesh)  # (world, 2, per, 2k+1)
+    got = got.transpose(0, 1).reshape(2, -1, 2 * k + 1)[:, :rows].reshape(2 * rows, 2 * k + 1)
+    return Affine(got[:, :k].reshape((2 * rows,) + coord),
+                  got[:, k : 2 * k].reshape((2 * rows,) + coord), got[:, 2 * k].bool())
 
 
 def _g2_row_to_host(tab: Affine, idx: int):

@@ -1,6 +1,8 @@
 """PyTorch port on an NVIDIA card: each CUDA kernel against its plain
 version on the same CUDA tensors, the pinned example2 proof on the card,
-and a proof batch and a full SRS on the card against their CPU results.
+a proof batch and a full SRS on the card against their CPU results, and
+a sharded prove (a rank a card, or two ranks sharing the one card)
+against the single-rank one.
 
 Every test here needs a CUDA device; it skips elsewhere. This file imports
 neither jax nor sonic_tpu, and the card's machine has no jax, so run it
@@ -111,19 +113,24 @@ def test_bucket_acc_kernel_equals_plain(dev, batch):
             assert torch.equal(g.cpu(), w)
 
 
-def test_pinned_example2_proof_on_the_card(dev):
+def _example2():
     with open(VEC_PATH) as f:
         vec = json.load(f)["example2"]
     r = vec["rnd"]
     rnd = gp.Randomness(cns=r["cns"], y=r["y"], z=r["z"], ys=r["ys"], zs=r["zs"], u=r["u"], v=r["v"])
     circuit, assignment = example_circuit_2(x=1, z=2)
-    srs = SRS.from_host(gp.SRS.new(vec["d"], x=vec["x"], alpha=vec["alpha"]), device=dev)
+    return gp.SRS.new(vec["d"], x=vec["x"], alpha=vec["alpha"]), circuit, assignment, rnd, vec["proof_hex"]
+
+
+def test_pinned_example2_proof_on_the_card(dev):
+    host_srs, circuit, assignment, rnd, proof_hex = _example2()
+    srs = SRS.from_host(host_srs, device=dev)
     dc = DeviceCircuit.from_host(circuit, device=dev)
     da = DeviceAssignment.from_host(assignment, device=dev)
     mont_mul.launches = bucket_acc.launches = 0
     proof, oracle = protocol.prove(srs, da, dc, rnd)
     assert mont_mul.launches > 0 and bucket_acc.launches > 0
-    assert serial.proof_to_bytes(proof).hex() == vec["proof_hex"]
+    assert serial.proof_to_bytes(proof).hex() == proof_hex
     assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
 
 
@@ -161,3 +168,42 @@ def test_full_srs_new_on_the_card_equals_the_cpu(dev):
     for name in ("g_x", "g_ax", "h_x", "h_ax"):
         for a, b in zip(getattr(got, name), getattr(want, name)):
             assert torch.equal(a.cpu(), b), name
+
+
+def _card_ranks(rank, world, store, outdir, backend):
+    """One rank: prove(mesh) on example2, on card rank % card count."""
+    from test_torch_parallel import save_rank
+
+    from sonic_tpu_torch.parallel import distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    distributed.initialize(backend=backend, init_method=f"file://{store}", world_size=world, rank=rank)
+    host_srs, circuit, assignment, rnd, _ = _example2()
+    dev = torch.device("cuda")
+    srs, dc = SRS.from_host(host_srs, device=dev), DeviceCircuit.from_host(circuit, device=dev)
+    mont_mul.launches = bucket_acc.launches = 0
+    proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment, device=dev), dc, rnd,
+                                   mesh=distributed.global_mesh())
+    launches = (mont_mul.launches, bucket_acc.launches)
+    ok = protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
+    save_rank(outdir, rank, (serial.proof_to_bytes(proof), launches, ok))
+
+
+def test_sharded_prove_on_the_card_equals_prove(dev, tmp_path):
+    """One rank a card over NCCL where there are several cards, else two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one GPU);
+    each rank's proof equals the single-rank prove's, and both kernels ran
+    on each rank."""
+    from test_torch_parallel import run_world
+
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards >= 2 else (2, "gloo")
+    wait = run_world(_card_ranks, world, tmp_path, backend)
+    host_srs, circuit, assignment, rnd, proof_hex = _example2()
+    want, _ = protocol.prove(SRS.from_host(host_srs, device=dev),
+                             DeviceAssignment.from_host(assignment, device=dev),
+                             DeviceCircuit.from_host(circuit, device=dev), rnd)
+    assert serial.proof_to_bytes(want).hex() == proof_hex
+    for got, (k1, k2), ok in wait():
+        assert got == serial.proof_to_bytes(want)
+        assert k1 > 0 and k2 > 0 and ok is True

@@ -3,8 +3,11 @@
 (a) A fresh interpreter imports sonic_tpu_torch, proves and verifies the
     pinned example2 vector, runs the example CLI on a random circuit,
     proves a batch of two, builds a full SRS and round-trips it through a
-    checkpoint, and proves example2 with the Fiat-Shamir device prover;
-    afterwards neither jax nor sonic_tpu is in sys.modules.
+    checkpoint, and proves with the Fiat-Shamir device prover; another
+    imports parallel/ and utils/ too and proves in a 2-rank gloo world
+    with a mesh (each rank's proof equal to the single-rank one), where it
+    also runs the example CLI; afterwards neither jax nor sonic_tpu is in
+    sys.modules.
 (b) Each host module the port carries as a JAX-free copy matches its
     original in sonic_tpu line for line, apart from import lines and the
     docstring that marks it a copy. native.py may differ only in
@@ -64,17 +67,75 @@ assert not bad, bad
 print("NO_JAX_OK")
 """
 
+# Run from a file: the spawned ranks import it to find `ranked`.
+_NO_JAX_MESH_SCRIPT = r"""
+import os, random, sys, tempfile
+import torch.multiprocessing as mp
+from sonic_tpu_torch import example, golden_protocol as gp, protocol, serial
+from sonic_tpu_torch.circuit import random_circuit
+from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
+from sonic_tpu_torch.parallel import distributed, mesh, ntt_sharded
+from sonic_tpu_torch.srs import SRS
+from sonic_tpu_torch.utils import log, sanitize, trace
 
-def test_port_proves_and_verifies_without_jax():
+
+def ranked(rank, world, store, host_srs, circuit, assignment, rnd, want):
+    # every rank's sharded proof is the single-rank one
+    distributed.initialize(backend="gloo", init_method="file://" + store, world_size=world, rank=rank)
+    srs = SRS.from_host(host_srs, device="cpu")
+    dc = DeviceCircuit.from_host(circuit, device="cpu")
+    proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment, device="cpu"), dc, rnd,
+                                   mesh=distributed.global_mesh())
+    assert serial.proof_to_bytes(proof) == want
+    assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
+    # the example CLI proves with the mesh of the running world
+    assert example.main(["--device", "cpu", "--n", "1", "--q", "1", "--seed", "3"]) == 0
+
+
+def main():
+    rng = random.Random(5)
+    circuit, assignment = random_circuit(rng, n=1, q=1)
+    rnd = gp.Randomness.generate(rng, m=1)
+    host_srs = gp.SRS.new(16, x=rng.randrange(2, gp.P), alpha=rng.randrange(2, gp.P))
+    want, _ = protocol.prove(SRS.from_host(host_srs, device="cpu"),
+                             DeviceAssignment.from_host(assignment, device="cpu"),
+                             DeviceCircuit.from_host(circuit, device="cpu"), rnd)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = (host_srs, circuit, assignment, rnd, serial.proof_to_bytes(want))
+        mp.start_processes(ranked, args=(2, os.path.join(tmp, "store")) + args, nprocs=2,
+                           start_method="spawn")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sonic_tpu"))
+    assert not bad, bad
+    print("NO_JAX_OK")
+
+
+if __name__ == "__main__":
+    main()
+"""
+
+
+def _run_jax_free(args):
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = ROOT
     env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_SCRIPT],
+        [sys.executable, *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "Success: True" in res.stdout and "NO_JAX_OK" in res.stdout
+    return res.stdout
+
+
+def test_port_proves_and_verifies_without_jax():
+    out = _run_jax_free(["-c", _NO_JAX_SCRIPT])
+    assert "Success: True" in out and "NO_JAX_OK" in out
+
+
+def test_sharded_port_proves_without_jax(tmp_path):
+    script = tmp_path / "no_jax_mesh.py"
+    script.write_text(_NO_JAX_MESH_SCRIPT)
+    out = _run_jax_free([str(script)])
+    assert out.count("Success: True") == 2 and "NO_JAX_OK" in out
 
 
 def _module(path):
@@ -99,7 +160,7 @@ def _body_lines(src: str, tree: ast.Module, skip=()) -> list:
 
 
 FULL_COPIES = ["fields/constants.py", "circuit.py", "golden.py", "golden_protocol.py",
-               "pairing/host.py", "native.py"]
+               "pairing/host.py", "native.py", "utils/log.py"]
 
 
 @pytest.mark.parametrize("path", FULL_COPIES)

@@ -118,3 +118,20 @@ def test_ntt_roundtrip_and_root_of_unity():
     assert np.array_equal(np.asarray(jntt.ntt(JFR.from_int(coeffs))).astype(np.int64), fwd.numpy())
     assert FR.to_int(ntt.ntt(fwd, inverse=True)).tolist() == coeffs
     assert ntt.root_of_unity(5) == jntt.root_of_unity(5)
+
+
+def test_ntt_threshold_follows_the_environment(monkeypatch):
+    """SONIC_TPU_NTT_THRESHOLD=512 steers both packages: a 30 x 25 product
+    (750 pairwise products, under the default 4096) takes the NTT branch in
+    both, with the same result."""
+    rng = random.Random(12)
+    jp, p = _both(_terms(rng, -10, 19))
+    jq, q = _both(_terms(rng, -4, 20))
+    monkeypatch.setenv("SONIC_TPU_NTT_THRESHOLD", "512")
+    assert laurent._ntt_threshold() == jl._ntt_threshold() == 512
+    taken, real = [], ntt.poly_mul_ntt
+    monkeypatch.setattr(ntt, "poly_mul_ntt", lambda a, b: taken.append(1) or real(a, b))
+    assert_same(jl.mul(jp, jq), laurent.mul(p, q))
+    assert taken == [1]
+    monkeypatch.delenv("SONIC_TPU_NTT_THRESHOLD")
+    assert laurent._ntt_threshold() == laurent._NTT_THRESHOLD
