@@ -17,7 +17,10 @@ torch.cuda.synchronize():
               against bucket_sums_plain on CPU copies, plain torch
               throughout), and on the 2^16-point MSM's own plan, timed:
               the whole (M, W, B) output equal to bucket_sums_plain; then
-              a full 2^16-point MSM equal to the native host Pippenger;
+              a full 2^16-point MSM equal to the native host Pippenger,
+              and a G2 MSM (pippenger.msm_g2: the same plan, summed by
+              bucket_sums_plain over G2, whose Fq2 products are kernel 1's)
+              equal to golden G2 multiples summed on the host;
   4. vectors  example1/example2 of tests/vectors/pinned_v1.json: the proof
               bytes equal `proof_hex`, verify True, False after tampering;
   5. main path random_circuit(Random(42), n=1024, q=64), d = 7n+20: SRS.new
@@ -26,11 +29,10 @@ torch.cuda.synchronize():
               MSMs over the SRS rows, both kernels' launch counts, and the
               phase table of one prove (sonic_tpu_torch.breakdown). Every
               kernel-2 launch of the counted prove (the helper's batched
-              ones at M=64 included; the first of them timed) and the first
-              kernel-1 launch of each distinct operand shape are kept and
-              then held, output for output, against bucket_sums_plain /
-              mont_mul_plain on the same inputs; kernel 1 is timed at its
-              most-launched shape.
+              ones at M=64 included; the first of them timed) is kept and
+              then held, output for output, against bucket_sums_plain on
+              the same inputs; kernel 1 is timed at its most-launched
+              shape, on random operands of that shape.
   6. full SRS SRS.new(h_mode="full") at d = 2^16 (all four tables on the
               card, G2 over Fq2, fixed-base window tables), timed, with
               each group's window table and fixed_base_mul timed: 64
@@ -39,8 +41,7 @@ torch.cuda.synchronize():
               scalars through the double-and-add ladder, a save_srs /
               load_srs round trip, and the pinned `srs_sha256` of
               example1/example2 from SRS.new on the card; kernel 1's
-              launches, and its first launch of each operand shape held
-              against mont_mul_plain;
+              launches;
   7. batch    prove_batch of B=64 random_circuit(n=1024, q=8) on phase 5's
               SRS: one warm-up and three timed calls, the phase table of
               one more (sonic_tpu_torch.breakdown), all 64 proofs verify
@@ -48,14 +49,12 @@ torch.cuda.synchronize():
               protocol.prove; both kernels' launch counts; its kernel-2
               launches against bucket_sums_plain (the largest and the first
               of each (M, W, B) shape always, the rest while a 120 s
-              budget lasts; the output says which) and the first kernel-1
-              launch of each operand shape against mont_mul_plain;
+              budget lasts; the output says which);
   8. Fiat-Shamir  on example2's host SRS, fiat_shamir.prove_device byte-equal
               to the host fiat_shamir.prove, verify True; on phase 5's
               circuit, prove_device timed, equal to protocol.prove with the
               Randomness of its own derived challenges, verify True;
-              its kernel-2 launches and the first kernel-1 launch of each
-              operand shape against the plain versions;
+              its kernel-2 launches against bucket_sums_plain;
   9. multi-rank  WORLD = 2 ranks (torch.multiprocessing, spawn, a file://
               store), NCCL with a card per rank, else gloo with both ranks
               on cuda:0 (NCCL refuses two ranks on one GPU). Each rank runs
@@ -68,11 +67,28 @@ torch.cuda.synchronize():
               7's proofs, and SRS.new(mesh) at d = 2^16 (full; all four
               tables' digest equal to phase 6's); seconds in the
               collectives (sync timers, breakdown.PARALLEL_PHASES) of the
-              timed prove and of each SRS.new. Each rank counts its launches inside its own Path
-              and fails if a kernel was never launched; rank 0 holds its
-              first kernel-2 launch and the first kernel-1 launch of each
-              operand shape against the plain versions. Two ranks on one
-              card measure that the path runs and is right, not scaling.
+              timed prove and of each SRS.new. Each rank counts its
+              launches inside its own Path and fails if a kernel was never
+              launched; rank 0 holds its first kernel-2 launch against
+              bucket_sums_plain. Two ranks on one card measure that the
+              path runs and is right, not scaling;
+ 10. big      BASELINE config 3 (bench.py's _bench_big_roundtrip), run
+              last, after this process has dropped the earlier phases'
+              tensors and emptied its allocator cache:
+              random_circuit(Random(77), n=2^16, q=64), x and alpha from the
+              same rng, d = 7n+20 = 458,772. The circuit upload, SRS.new in
+              verifier mode on the card and a save_srs / load_srs round trip
+              (the loaded G1 tables' digest equal to the generated ones'),
+              each timed; one warm-up prove and verify on the loaded SRS
+              inside the path (the first kernel-2 launch of each (M, W, B,
+              N) kept), verify True; the kept kernel-2 launches against
+              bucket_sums_plain (the smallest and a helper slice always,
+              the rest while BIG_PLAIN_BUDGET_S lasts), then let go; one
+              timed prove whose peak device memory must stay within
+              BIG_PEAK_GIB, and the phase table of one more (peak memory
+              per phase, slices of each batched MSM); pr_r, pr_t and
+              helper commitments 0 and 63 equal to native host MSMs over
+              the same SRS rows; a tampered proof False.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -80,9 +96,13 @@ additions (nonzero digits on finite points), 11 Fq products of 2 * 12^2
 word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
-Every path (phases 5-9) runs with both launch counters set to 0 just before
-it and read just after, and fails if a kernel it uses was never launched;
-phase 9's launches are summed over its ranks.
+Every path (phase 3's G2 MSM, phases 5-10) runs with the launch counters
+set to 0 just before it and read just after, and fails if a kernel it uses
+was never launched; phase 9's launches are summed over its ranks. Inside
+every path (on every rank) the first kernel-1 launch of each operand
+shape is held against mont_mul_plain as it runs; the timers leave the
+seconds of these checks out. A kernel-2 plain time (plain_ms) is that of
+the one plain run that checks the launch.
 Every comparison is exact (all values are integers); a failed one raises.
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -93,6 +113,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import pickle
 import random
@@ -116,7 +137,11 @@ MAIN_N, MAIN_Q, PROVE_RUNS = 1024, 64, 3  # phase 5 (and 7's n, 8's circuit)
 SRS_D, SRS_ROWS_CHECKED, LADDER_ROWS = 1 << 16, 64, 4096  # phase 6
 BATCH_B, BATCH_Q = 64, 8  # phase 7
 PLAIN_BUDGET_S = 120.0  # phase 7: time for kernel 2 against bucket_sums_plain
+G2_MSM_N = 64  # phase 3: G2 MSM points
 WORLD, WORLD_TIMEOUT_S = 2, 600  # phase 9
+BIG_N, BIG_Q = 1 << 16, 64  # phase 10
+BIG_PEAK_GIB = 40.0  # phase 10: most device memory one prove may allocate
+BIG_PLAIN_BUDGET_S = 60.0  # phase 10: time for kernel 2 against bucket_sums_plain
 
 
 def log(msg: str) -> None:
@@ -153,36 +178,75 @@ def table_digest(srs, names=("g_x", "g_ax", "h_x", "h_ax")) -> str:
     return h.hexdigest()
 
 
+def plain_err(out, a, b, spec, limit: int = 1 << 20) -> int:
+    """max |out - mont_mul_plain(a, b)|, the plain version (elementwise)
+    taken over slices of at most `limit` elements of the broadcast shape."""
+    from sonic_tpu_torch.fields import mont_mul
+
+    a, b = a.expand(out.shape), b.expand(out.shape)
+    rows = out[..., 0].numel()
+    if rows <= limit:
+        return int((out - mont_mul.mont_mul_plain(a, b, spec)).abs().max()) if rows else 0
+    if out.shape[0] == 1:
+        return plain_err(out[0], a[0], b[0], spec, limit)
+    per = max(1, out.shape[0] * limit // rows)
+    return max(plain_err(out[i:i + per], a[i:i + per], b[i:i + per], spec, limit)
+               for i in range(0, out.shape[0], per))
+
+
 class Path:
     """Drives one path of the port: both launch counters are set to 0 on
-    entry and read on exit. It keeps the inputs of every kernel-2 launch
-    (of the first `keep_sums`, when given) and of the first kernel-1
-    launch of each operand shape, and counts kernel-1 launches by shape,
-    so that the kernels can be held against their plain versions
-    afterwards."""
+    entry and read on exit. The first kernel-1 launch of each operand
+    shape is held against mont_mul_plain as it happens (`plain_err`; the
+    errors go to `k1_err`), and kernel-1 launches are counted by shape.
+    It keeps the inputs of every kernel-2 launch (of the first
+    `keep_sums`, when given; with `sums_by_shape`, of the first launch of
+    each plan shape (M, W, B) and point count N), so that kernel 2 can be
+    held against its plain version afterwards. The kernel-1 checks'
+    seconds add up in `Path.check_s`, which the script's timers leave out."""
 
-    def __init__(self, name: str, uses=("mont_mul", "bucket_sums"), keep_sums: int | None = None):
-        self.name, self.uses, self.keep_sums = name, uses, keep_sums
-        self.sums, self.products, self.shape_count = [], {}, {}
+    check_s = 0.0
+
+    def __init__(self, name: str, uses=("mont_mul", "bucket_sums"), keep_sums: int | None = None,
+                 sums_by_shape: bool = False):
+        self.name, self.uses, self.keep_sums, self.sums_by_shape = name, uses, keep_sums, sums_by_shape
+        self.sums, self.sum_shapes, self.shape_count, self.k1_err = [], set(), {}, []
 
     def __enter__(self):
+        import torch
+
         from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc, pippenger
 
         self._real = real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
 
         def sums_keep(pts, plan):
-            if self.keep_sums is None or len(self.sums) < self.keep_sums:
+            if self.sums_by_shape:
+                key = (plan.shape, plan.npoints)
+                if key not in self.sum_shapes:
+                    self.sum_shapes.add(key)
+                    self.sums.append((pts, plan))
+            elif self.keep_sums is None or len(self.sums) < self.keep_sums:
                 self.sums.append((pts, plan))
             return real_sums(pts, plan)
 
-        def mul_keep(a, b, spec):
+        def mul_check(a, b, spec):
             key = (spec.name, tuple(a.shape), tuple(b.shape))
-            self.products.setdefault(key, (a, b, spec))
             self.shape_count[key] = self.shape_count.get(key, 0) + 1
-            return real_mul(a, b, spec)
+            out = real_mul(a, b, spec)
+            if self.shape_count[key] == 1:
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+                t0 = time.perf_counter()
+                err = plain_err(out, a, b, spec)
+                Path.check_s += time.perf_counter() - t0
+                self.k1_err.append(err)
+                if err:
+                    raise AssertionError(f"{self.name}: kernel 1 {spec.name} {tuple(a.shape)} x "
+                                         f"{tuple(b.shape)} differs from mont_mul_plain")
+            return out
 
-        pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_keep
+        pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_check
         mont_mul.launches = bucket_acc.launches = 0
         return self
 
@@ -207,7 +271,6 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
 
     from sonic_tpu_torch import breakdown, protocol, serial
     from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
-    from sonic_tpu_torch.fields import mont_mul
     from sonic_tpu_torch.msm import bucket_acc
     from sonic_tpu_torch.parallel import distributed, ntt_sharded
     from sonic_tpu_torch.srs import SRS
@@ -229,7 +292,7 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
 
     def timed(key, fn, coll=None):
         torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), Path.check_s
         if coll is None:
             res = fn()
         else:
@@ -237,7 +300,7 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
                 res = fn()
             out[f"coll_{coll}"] = {k: v[:2] for k, v in acc.items()}
         torch.cuda.synchronize(dev)
-        out[key] = time.perf_counter() - t0
+        out[key] = time.perf_counter() - t0 - (Path.check_s - c0)
         return res
 
     sharded_ntts = []
@@ -272,12 +335,9 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
         del full
     out["launches"] = path.launches
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    out["k1_err"], out["k2_err"] = [], []
-    # rank 0's checks below need the card's memory: the other ranks hand
-    # theirs back first (their Paths keep the inputs of every shape)
+    out["k1_err"], out["k2_err"] = path.k1_err, []
+    # rank 0's kernel-2 check below runs on memory the other ranks hand back first
     del srs, dc, da, bdcs, bdas, proof, oracle
-    if rank != 0:
-        del path
     torch.cuda.empty_cache()
     torch.distributed.barrier()
     if rank == 0:
@@ -286,13 +346,6 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
         out["k2_err"].append(max(int((g - w).abs().max()) for g, w in zip(got, want)))
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError("phase 9 rank 0: kernel 2 differs from bucket_sums_plain")
-        while path.products:  # each shape's inputs are let go once checked
-            a, b, spec = path.products.popitem()[1]
-            got, want = mont_mul.mont_mul(a, b, spec), mont_mul.mont_mul_plain(a, b, spec)
-            out["k1_err"].append(int((got - want).abs().max()) if got.numel() else 0)
-            if not torch.equal(got, want):
-                raise AssertionError(f"phase 9 rank 0: kernel 1 {spec.name} {tuple(a.shape)} x "
-                                     f"{tuple(b.shape)} differs from mont_mul_plain")
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -309,7 +362,7 @@ def main() -> int:
     from sonic_tpu_torch import golden_protocol as gp
     from sonic_tpu_torch.circuit import example_circuit_1, example_circuit_2, random_circuit
     from sonic_tpu_torch.constraints import (
-        DeviceAssignment, DeviceCircuit, k_at_y, r_at_y, r_x1_poly, s_at_y,
+        DeviceAssignment, DeviceCircuit, k_at_y, r_at_y, r_x1_poly, s_at_y, s_at_y_batched,
     )
     from sonic_tpu_torch.curve.group import Affine, g1, g2
     from sonic_tpu_torch.fields import limb, mont_mul
@@ -319,6 +372,7 @@ def main() -> int:
     from sonic_tpu_torch.poly import laurent
     from sonic_tpu_torch.srs import SRS
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev)
@@ -327,10 +381,10 @@ def main() -> int:
 
     def timed(fn):
         sync()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), Path.check_s
         out = fn()
         sync()
-        return out, time.perf_counter() - t0
+        return out, time.perf_counter() - t0 - (Path.check_s - c0)
 
     def event_ms(fn, reps):
         fn()
@@ -413,8 +467,12 @@ def main() -> int:
 
     def check_sums(pts, plan, label, time_it=True):
         got = bucket_acc.bucket_sums(pts, plan)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         want = bucket_acc.bucket_sums_plain(pts, plan)
+        end.record()
         sync()
+        plain_ms = start.elapsed_time(end)
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"kernel 2 {label}: bucket sums differ from bucket_sums_plain")
@@ -425,7 +483,6 @@ def main() -> int:
             log(f"  kernel 2 {label}: {what}")
             return err, None, None, None
         ms = event_ms(lambda: bucket_acc.bucket_sums(pts, plan), 5)
-        plain_ms = event_ms(lambda: bucket_acc.bucket_sums_plain(pts, plan), 1)
         bound = k2_bound_ms(plan)
         log(f"  kernel 2 {label}: {what}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"multiply-add bound {bound:.3f} ms ({100 * bound / ms:.1f} % of it)")
@@ -468,6 +525,23 @@ def main() -> int:
     _, t_msm2 = timed(lambda: g1.to_affine(pippenger.msm(points, scalars)))
     log(f"phase 3 msm: 2^16 points equal to native g1_msm_native; card {t_msm:.3f} s "
         f"(first call), {t_msm2:.3f} s (second); host native {t_native:.3f} s")
+
+    g2rng = random.Random(3)
+    g2_pts = [golden.g2_mul(golden.G2_GEN, g2rng.randrange(1, gp.P)) for _ in range(G2_MSM_N)]
+    g2_pts[1] = None
+    g2_sc = [g2rng.randrange(gp.P) for _ in range(G2_MSM_N - 1)] + [0]
+    want = None
+    for p_, k_ in zip(g2_pts, g2_sc):
+        want = golden.g2_add(want, None if p_ is None else golden.g2_mul(p_, k_))
+    with Path("msm_g2", uses=("mont_mul",)) as g2_path:
+        res, t_g2 = timed(lambda: g2.to_affine(pippenger.msm_g2(
+            g2.from_host(g2_pts, dev), FR.from_int(g2_sc, mont=False, device=dev)).map(lambda a: a[None])))
+    paths["msm_g2"] = g2_path.launches
+    if g2.to_host(res) != [want]:
+        raise AssertionError("G2 MSM differs from golden G2 multiples summed on the host")
+    log(f"phase 3 msm_g2: {G2_MSM_N} G2 points (one at infinity, one zero scalar) equal to golden "
+        f"g2_mul sums; card {t_g2:.3f} s; kernel launches {g2_path.launches}; the first kernel-1 launch "
+        f"of each of {len(g2_path.k1_err)} operand shapes equal to mont_mul_plain as it ran")
 
     # -- phase 4: pinned vectors -----------------------------------------------------------
     with open(os.path.join(ROOT, "tests", "vectors", "pinned_v1.json")) as f:
@@ -533,7 +607,8 @@ def main() -> int:
         log(line)
 
     # pr_r and pr_t recomputed on the host: native MSM over the SRS rows
-    def host_commit(maxm, poly):
+    def host_commit(srs, maxm, poly):
+        d = srs.d
         lo = poly.offset + d - maxm
         sl = slice(lo + d, lo + d + poly.length)
         rows = g1.to_host(Affine(srs.g_ax.x[sl], srs.g_ax.y[sl], srs.g_ax.inf[sl]))
@@ -545,9 +620,9 @@ def main() -> int:
     t_y = laurent.mul(r1, laurent.add(r_at_y(r1, y_m), s_at_y(dc, y_m)))
     tc = t_y.coeffs.clone()
     tc[-t_y.offset] = limb.sub(tc[-t_y.offset], k_at_y(dc, n, y_m), FR)
-    if host_commit(n, r1) != proof.pr_r:
+    if host_commit(srs, n, r1) != proof.pr_r:
         raise AssertionError("pr_r differs from the native host MSM")
-    if host_commit(d, laurent.Laurent(t_y.offset, tc)) != proof.pr_t:
+    if host_commit(srs, d, laurent.Laurent(t_y.offset, tc)) != proof.pr_t:
         raise AssertionError("pr_t differs from the native host MSM")
     proof.pr_a = (proof.pr_a + 1) % gp.P
     if protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs):
@@ -555,30 +630,25 @@ def main() -> int:
     log("phase 5 checks: verify True, tampered False, pr_r and pr_t equal to native host MSMs")
 
     # the kernels at a path's own shapes, against their plain versions
-    k1_err = [k1["Fr"][0], k1["Fq"][0]]
+    k1_err = [k1["Fr"][0], k1["Fq"][0]] + g2_path.k1_err
 
-    def check_products(path, label):
-        errs = []
-        for a, b, spec in path.products.values():
-            got, want = mont_mul.mont_mul(a, b, spec), mont_mul.mont_mul_plain(a, b, spec)
-            errs.append(int((got - want).abs().max()) if got.numel() else 0)
-            if not torch.equal(got, want):
-                raise AssertionError(f"{label} kernel 1 {spec.name} {tuple(a.shape)} x "
-                                     f"{tuple(b.shape)}: differs from mont_mul_plain")
-        k1_err.extend(errs)
-        log(f"{label} kernel 1: the first launch of each of {len(path.products)} operand shapes "
-            f"of the counted run equal to mont_mul_plain (max abs err {max(errs, default=0)})")
+    def k1_checked(path, label):
+        k1_err.extend(path.k1_err)
+        log(f"{label} kernel 1: the first launch of each of {len(path.k1_err)} operand shapes "
+            f"equal to mont_mul_plain as it ran (max abs err {max(path.k1_err, default=0)})")
 
-    check_products(main_path, "phase 5")
+    k1_checked(main_path, "phase 5")
+    # the most-launched shape timed on random operands of its shapes
     top = max(main_path.shape_count, key=main_path.shape_count.get)
-    a, b, spec = main_path.products[top]
+    spec = {FR.name: FR, FQ.name: FQ}[top[0]]
+    a, b = (rand_canonical(spec, max(1, math.prod(s_[:-1]))).reshape(s_) for s_ in top[1:])
     nout = torch.broadcast_shapes(a.shape, b.shape).numel()
     top_ms = event_ms(lambda: mont_mul.mont_mul(a, b, spec), 200)
     top_plain = event_ms(lambda: mont_mul.mont_mul_plain(a, b, spec), 20)
     top_bound = k1_bound_ms(a, b, nout)
     log(f"phase 5 kernel 1 most-launched shape {spec.name} {tuple(a.shape)} x {tuple(b.shape)} "
-        f"({main_path.shape_count[top]} of {sum(main_path.shape_count.values())} launches): "
-        f"kernel {top_ms:.4f} ms, plain {top_plain:.3f} ms, byte bound {top_bound:.5f} ms")
+        f"({main_path.shape_count[top]} of {sum(main_path.shape_count.values())} launches; "
+        f"random operands): kernel {top_ms:.4f} ms, plain {top_plain:.3f} ms, byte bound {top_bound:.5f} ms")
 
     log(f"phase 5 kernel 2: the {len(main_path.sums)} bucket-sums launches of the counted run:")
     k2_main = None
@@ -674,7 +744,7 @@ def main() -> int:
             raise AssertionError(f"phase 6: {vname} SRS digest differs from pinned_v1.json")
         log(f"phase 6 {vname}: SRS.new(h_mode='full') d={vec['d']} on the card ({t_v:.2f} s) "
             "gives the pinned srs_sha256")
-    check_products(srs_path, "phase 6")
+    k1_checked(srs_path, "phase 6")
     full_digest = table_digest(full)
     del full, srs_path
 
@@ -729,7 +799,7 @@ def main() -> int:
     log(f"phase 7 checks: all {B} proofs verify True ({t_bver:.2f} s), tampered proof {bad} False, "
         f"proofs 0 and {B - 1} byte-equal to protocol.prove")
 
-    check_products(batch_path, "phase 7")
+    k1_checked(batch_path, "phase 7")
     sums = list(enumerate(batch_path.sums))
     largest = max(sums, key=lambda s: s[1][1].entries)[0]
     firsts = {}
@@ -785,7 +855,7 @@ def main() -> int:
         raise AssertionError("phase 8: protocol.verify returned False on the FS proof")
     log(f"phase 8 n={n} q={q}: prove_device {t_fs:.3f} s, equal to protocol.prove with its "
         f"derived challenges, verify True; kernel launches: {fs_path.launches}")
-    check_products(fs_path, "phase 8")
+    k1_checked(fs_path, "phase 8")
     for i, (pts, plan) in enumerate(fs_path.sums):
         k2_err.append(check_sums(pts, plan, f"phase 8 launch {i} {plan.shape} (M, W, B) over "
                                             f"N={plan.npoints}", time_it=False)[0])
@@ -848,6 +918,119 @@ def main() -> int:
         f"{max(r0['k2_err'])}), first kernel-1 launch of each of {len(r0['k1_err'])} operand shapes "
         f"equal to mont_mul_plain (max abs err {max(r0['k1_err'])})")
 
+    # -- phase 10: big, BASELINE config 3 (bench.py's _bench_big_roundtrip) -------------------
+    # this process's tensors of the earlier phases go first, then its allocator's cache
+    del points, plan16, small, digits, msm_digits, scalars, host_pts, a, b, base, aff
+    del srs, dc, da, bdcs, bdas, bpairs, refs, nizk, fproof, proof, proof2, proof3, r1, t_y, tc
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    n, q = BIG_N, BIG_Q
+    rng = random.Random(77)
+    circuit, assignment = random_circuit(rng, n=n, q=q)
+    (dc, da), t_up = timed(lambda: (DeviceCircuit.from_host(circuit, device=dev),
+                                    DeviceAssignment.from_host(assignment, device=dev)))
+    d = 7 * n + 20
+    x, alpha = rng.randrange(2, gp.P), rng.randrange(2, gp.P)
+    gen_srs, t_srs = timed(lambda: SRS.new(d, x, alpha, h_mode="verifier", n_hints=[n], device=dev))
+    digest = table_digest(gen_srs, ("g_x", "g_ax"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "srs.npz")
+        _, t_save = timed(lambda: serial.save_srs(path, gen_srs))
+        size = os.path.getsize(path)
+        del gen_srs
+        srs, t_load = timed(lambda: serial.load_srs(path, device=dev))
+    if table_digest(srs, ("g_x", "g_ax")) != digest:
+        raise AssertionError("phase 10: the loaded SRS's G1 tables differ from the generated ones")
+    rnd = gp.Randomness.generate(rng, m=q)
+    log(f"phase 10 big: random_circuit(Random(77), n={n}, q={q}), d={d}; circuit upload {t_up:.2f} s, "
+        f"SRS.new (verifier mode) {t_srs:.2f} s, save_srs {t_save:.2f} s ({size / 1e6:.1f} MB), "
+        f"load_srs {t_load:.2f} s, loaded G1 tables' digest equal to the generated ones'")
+
+    with Path("big prove + verify", sums_by_shape=True) as big_path:
+        (proof, oracle), t_warm = timed(lambda: protocol.prove(srs, da, dc, rnd))
+        ok, t_verify = timed(lambda: protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs))
+    paths["big prove + verify"] = big_path.launches
+    if not ok:
+        raise AssertionError("phase 10: verify returned False")
+    log(f"phase 10 prove (warm-up) {t_warm:.2f} s, verify {t_verify:.3f} s (kernel-1 checks left out); "
+        f"kernel launches in prove + verify: {big_path.launches}")
+    k1_checked(big_path, "phase 10")
+
+    # kernel 2: the first launch of each (M, W, B, N), smallest first; the
+    # smallest and a full helper slice (the most points, then the most MSMs)
+    # always, that slice timed with the largest single MSM
+    sums = sorted(big_path.sums, key=lambda s_: s_[1].entries)
+    del big_path
+    slice_i = max((i for i, (_, p_) in enumerate(sums) if p_.shape[0] > 1),
+                  key=lambda i: (sums[i][1].npoints, sums[i][1].shape[0]))
+    single_i = max((i for i, (_, p_) in enumerate(sums) if p_.shape[0] == 1), key=lambda i: sums[i][1].entries)
+    must = {0, slice_i}
+    t0 = time.perf_counter()
+    checked, big_k2 = [], {}
+    for i in sorted(must) + [i for i in range(len(sums)) if i not in must]:
+        if i not in must and time.perf_counter() - t0 > BIG_PLAIN_BUDGET_S:
+            continue
+        pts, plan = sums[i]
+        label = f"launch {plan.shape} (M, W, B) over N={plan.npoints}"
+        err = check_sums(pts, plan, label, time_it=i in (slice_i, single_i))
+        k2_err.append(err[0])
+        if i in (slice_i, single_i):
+            big_k2["slice" if i == slice_i else "single"] = (plan.shape, plan.npoints, plan.entries) + err[1:]
+        checked.append(i)
+    if single_i not in checked:  # timed even when the budget skipped its plain check
+        pts, plan = sums[single_i]
+        big_k2["single"] = (plan.shape, plan.npoints, plan.entries,
+                            event_ms(lambda: bucket_acc.bucket_sums(pts, plan), 3), None, k2_bound_ms(plan))
+    log(f"phase 10 kernel 2: {len(checked)} of the {len(sums)} distinct (M, W, B, N) launches equal to "
+        f"bucket_sums_plain (smallest first; the smallest and a helper slice always, the rest while the "
+        f"{BIG_PLAIN_BUDGET_S:.0f} s budget lasted; {time.perf_counter() - t0:.1f} s)")
+    del sums, pts, plan
+
+    # the timed prove's peak is its own: the kept launches are gone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (proof2, _), t_prove = timed(lambda: protocol.prove(srs, da, dc, rnd))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if serial.proof_to_bytes(proof2) != serial.proof_to_bytes(proof):
+        raise AssertionError("phase 10: repeated proofs differ")
+    log(f"phase 10 prove (timed) {t_prove:.3f} s, peak device memory {peak:.2f} GiB "
+        f"(limit {BIG_PEAK_GIB:.0f} GiB; the SRS and circuit on the card included); "
+        f"{n / t_prove:.0f} gates/s")
+    if peak > BIG_PEAK_GIB:
+        raise AssertionError(f"phase 10: the prove's peak device memory {peak:.2f} GiB exceeds "
+                             f"{BIG_PEAK_GIB} GiB")
+    with breakdown.phase_timers(dev) as acc:
+        (proof3, _), t_phases = timed(lambda: protocol.prove(srs, da, dc, rnd))
+    if serial.proof_to_bytes(proof3) != serial.proof_to_bytes(proof):
+        raise AssertionError("phase 10: the proof under phase timers differs")
+    log(f"phase 10 phase breakdown of one prove (sonic_tpu_torch.breakdown timers), {t_phases:.3f} s:")
+    for line in breakdown.phase_table(acc):
+        log(line)
+    del proof2, proof3
+
+    t0 = time.perf_counter()
+    cns, y_m = FR.from_int(rnd.cns, device=dev), FR.from_int(rnd.y, device=dev)
+    r1 = r_x1_poly(da, cns)
+    t_y = laurent.mul(r1, laurent.add(r_at_y(r1, y_m), s_at_y(dc, y_m)))
+    tc = t_y.coeffs.clone()
+    tc[-t_y.offset] = limb.sub(tc[-t_y.offset], k_at_y(dc, n, y_m), FR)
+    if host_commit(srs, n, r1) != proof.pr_r:
+        raise AssertionError("phase 10: pr_r differs from the native host MSM")
+    if host_commit(srs, d, laurent.Laurent(t_y.offset, tc)) != proof.pr_t:
+        raise AssertionError("phase 10: pr_t differs from the native host MSM")
+    del r1, t_y, tc
+    s_j = s_at_y_batched(dc, FR.from_int([rnd.ys[0], rnd.ys[q - 1]], device=dev))
+    for k, j in enumerate((0, q - 1)):
+        if host_commit(srs, d, laurent.Laurent(-n, s_j[k])) != proof.pr_hsc.hsc_s[j][0]:
+            raise AssertionError(f"phase 10: helper commitment {j} differs from the native host MSM")
+    del s_j
+    proof.pr_a = (proof.pr_a + 1) % gp.P
+    if protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs):
+        raise AssertionError("phase 10: tampered proof verified")
+    log(f"phase 10 checks: verify True, tampered False; pr_r, pr_t and helper commitments 0 and "
+        f"{q - 1} equal to native host MSMs over the same SRS rows ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s for the phase, circuit generation included")
+
     def total(kernel):
         return sum(p[kernel] for p in paths.values())
 
@@ -861,11 +1044,16 @@ def main() -> int:
          "replaces": "sonic_tpu/msm/pallas_acc.py:136", "launches": total("bucket_sums"),
          "launches_by_path": {k: v["bucket_sums"] for k, v in paths.items()},
          "max_abs_err": max(k2_err), "ms": k2_main[0], "plain_ms": k2_main[1],
-         "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None},
+         "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None,
+         "big": {k: dict(zip(("shape", "npoints", "entries", "ms", "plain_ms", "bound_ms"), v))
+                 for k, v in big_k2.items()}},
     ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "
-        f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f})")
+        f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f}); "
+        + "; ".join(f"big {k} {v[0]} over N={v[1]}, E={v[2]}: {v[3]:.3f} ms (bound {v[5]:.3f}, plain "
+                    f"{'not checked' if v[4] is None else f'{v[4]:.3f}'})" for k, v in big_k2.items()))
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,8 +8,10 @@ Sets up what `example.py --n N --q Q` sets up (random_circuit(Random(seed),
 n, q), d = 7n + 20, the verifier-mode SRS built on the device), proves once
 to warm up and times `reps` proves. Then it proves once more with a
 synchronizing timer around each phase function of the prover and prints,
-per phase, its seconds, its calls and the kernel-1 launches made inside it.
-Rows that start with "in" are nested inside the phases above them. With
+per phase, its seconds, its calls, the kernel-1 launches made inside it
+and its peak device memory, and how many slices of the M axis each shape
+of batched MSM was cut into (`budget`, `pippenger.slicings`). Rows that start
+with "in" are nested inside the phases above them. With
 --profiler, one more prove runs under torch.profiler, and the device's
 events, busy seconds, busy share of the wall and busiest kernels are
 printed (on the CPU there are no device events).
@@ -97,18 +99,40 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class Timings(collections.defaultdict):
+    """{label: [seconds, calls, kernel-1 launches, peak device bytes]};
+    `slices` counts the batched MSMs' calls by (M, N, slices of M)."""
+
+    def __init__(self):
+        super().__init__(lambda: [0.0, 0, 0, 0])
+        self.slices: collections.Counter = collections.Counter()
+
+
 @contextlib.contextmanager
 def phase_timers(device: torch.device, phases=PHASES):
-    """Yields {label: [seconds, calls, kernel-1 launches]}, filled by the
-    calls made inside the block to the functions of `phases` (PHASES +
-    BATCH_PHASES for prove_batch, PARALLEL_PHASES for the collectives of a
-    call with a mesh)."""
-    acc: dict = collections.defaultdict(lambda: [0.0, 0, 0])
+    """Yields a `Timings`, filled by the calls made inside the block to the
+    functions of `phases` (PHASES + BATCH_PHASES for prove_batch,
+    PARALLEL_PHASES for the collectives of a call with a mesh), and the
+    batched MSMs' slicings made inside the block. A phase's peak is the most device memory
+    allocated at any time inside its calls (0 on the CPU): each call
+    resets the allocator's peak on entry, after handing the peak so far to
+    the calls it is nested in."""
+    acc = Timings()
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in phases]
+    before = collections.Counter(pippenger.slicings)
+    cuda = device.type == "cuda"
+    open_peaks: list = []  # peaks of the timed calls in progress, innermost last
+
+    def lift(peak):
+        open_peaks[:] = [max(p, peak) for p in open_peaks]
 
     def timer(fn, label):
         def timed(*args, **kwargs):
             _sync(device)
+            if cuda:
+                lift(torch.cuda.max_memory_allocated(device))
+                torch.cuda.reset_peak_memory_stats(device)
+            open_peaks.append(0)
             launches, t0 = mont_mul.launches, time.perf_counter()
             out = fn(*args, **kwargs)
             _sync(device)
@@ -116,6 +140,11 @@ def phase_timers(device: torch.device, phases=PHASES):
             row[0] += time.perf_counter() - t0
             row[1] += 1
             row[2] += mont_mul.launches - launches
+            peak = open_peaks.pop()
+            if cuda:
+                peak = max(peak, torch.cuda.max_memory_allocated(device))
+                lift(peak)
+            row[3] = max(row[3], peak)
             return out
 
         return timed
@@ -127,14 +156,18 @@ def phase_timers(device: torch.device, phases=PHASES):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        acc.slices.update(pippenger.slicings - before)
 
 
-def phase_table(acc) -> list:
-    """The rows of `phase_timers`' table, phases first, longest first."""
-    lines = [f"  {'phase':40s} {'s':>10s} {'calls':>6s} {'mont_mul launches':>18s}"]
+def phase_table(acc: Timings) -> list:
+    """The rows of `phase_timers`' table, phases first, longest first, then
+    the batched MSMs' slice counts."""
+    lines = [f"  {'phase':40s} {'s':>10s} {'calls':>6s} {'mont_mul launches':>18s} {'peak GiB':>9s}"]
     for label in sorted(acc, key=lambda k: (k.startswith("in "), -acc[k][0])):
-        s, calls, launches = acc[label]
-        lines.append(f"  {label:40s} {s:10.4f} {calls:6d} {launches:18d}")
+        s, calls, launches, peak = acc[label]
+        lines.append(f"  {label:40s} {s:10.4f} {calls:6d} {launches:18d} {peak / 2**30:9.2f}")
+    for (M, N, k), calls in sorted(acc.slices.items()):
+        lines.append(f"  batched MSM M={M} over N={N}: {k} slice(s) of M, {calls} call(s)")
     return lines
 
 
@@ -191,6 +224,8 @@ def main(argv=None) -> int:
             return protocol.prove(srs, da, dc, rnd, mesh=mesh)
 
         prove()  # warm-up
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         times = []
         for _ in range(args.reps):
             _sync(device)
@@ -199,8 +234,10 @@ def main(argv=None) -> int:
             _sync(device)
             times.append(time.perf_counter() - t0)
         ranks = f", {mesh.size()} ranks" if mesh is not None else ""
+        peak = (f", peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                if device.type == "cuda" else "")
         say(f"n={args.n} q={args.q} d={d} on {device}{ranks}: prove s {times} "
-            f"median {statistics.median(times)}", flush=True)
+            f"median {statistics.median(times)}{peak}", flush=True)
 
         with phase_timers(device, PHASES + (PARALLEL_PHASES if mesh is not None else [])) as acc:
             _sync(device)

@@ -20,9 +20,11 @@ Exponent layout (Constraints.hs):
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from . import budget
 from .circuit import ArithCircuit, Assignment
 from .device import resolve
 from .fields import limb
@@ -114,11 +116,24 @@ def r_at_y(r1: Laurent, y) -> Laurent:
 
 def _weighted(yq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_q yq[q] * w[..., q, i]: yq (Q, *B, *M, L), w (*B, Q, n, L) ->
-    (*B, *M, n, L), B the circuit's batch axes, M more batch axes of y."""
+    (*B, *M, n, L), B the circuit's batch axes, M more batch axes of y.
+    The products are formed as many q at a time as the step budget holds
+    at `budget.PRODUCT_BYTES` a product (at least one q; all 64 at once
+    held 32 GiB a weight matrix at n = 2^16), each slice summed and added
+    to the running sum: sums mod N are exact, so the result does not
+    depend on the slicing."""
     w = w.movedim(-3, 0)  # (Q, *B, n, L)
     nb = w.dim() - 3
     w = w.reshape(w.shape[: 1 + nb] + (1,) * (yq.dim() - 2 - nb) + w.shape[-2:])
-    return limb.sum_mod(limb.mul(yq.unsqueeze(-2), w, FR), FR, axis=0)
+    yq = yq.unsqueeze(-2)
+    Q = yq.shape[0]
+    per = budget.per_step(budget.PRODUCT_BYTES
+                          * math.prod(torch.broadcast_shapes(yq.shape[1:-1], w.shape[1:-1])))
+    acc = None
+    for lo in range(0, max(Q, 1), per):
+        part = limb.sum_mod(limb.mul(yq[lo : lo + per], w[lo : lo + per], FR), FR, axis=0)
+        acc = part if acc is None else limb.add(acc, part, FR)
+    return acc
 
 
 def s_at_y_batch(circuits: DeviceCircuit, ys: torch.Tensor) -> torch.Tensor:

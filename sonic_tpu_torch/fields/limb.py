@@ -118,16 +118,17 @@ class FieldSpec:
     # -- host-side converters --------------------------------------------------
 
     def from_int(self, v, mont: bool = True, device=None) -> torch.Tensor:
-        """Python int (or nested list of ints) -> limb tensor (Montgomery)."""
+        """Python int (or nested list of ints) -> limb tensor (Montgomery).
+        Each value's little-endian bytes are its 16-bit limbs, so one
+        `to_bytes` a value and one `np.frombuffer` make the tensor."""
         arr = np.asarray(v, dtype=object)
-        flat = np.empty(arr.size, dtype=object)
-        flat[:] = [int(x) % self.modulus for x in arr.reshape(-1)]
-        if mont and flat.size:
-            flat = flat * self.mont_r % self.modulus
-        out = np.zeros((flat.size, self.nlimbs), np.int64)
-        for i in range(self.nlimbs):
-            if flat.size:
-                out[:, i] = ((flat >> (SHIFT * i)) & MASK).astype(np.int64)
+        p, r = self.modulus, self.mont_r
+        vals = (int(x) % p for x in arr.reshape(-1))
+        if mont:
+            vals = (x * r % p for x in vals)
+        size = 2 * self.nlimbs
+        buf = b"".join(x.to_bytes(size, "little") for x in vals)
+        out = np.frombuffer(buf, dtype="<u2").astype(np.int64)
         t = torch.from_numpy(out.reshape(arr.shape + (self.nlimbs,)))
         return t.to(device) if device is not None else t
 

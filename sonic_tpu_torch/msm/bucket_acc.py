@@ -33,7 +33,9 @@ output. On CUDA tensors the plain version's products go through `limb.mul`,
 that is kernel 1 (checked on its own against `mont_mul_plain`).
 
 `bucket_sums` dispatches on the plan's device: CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise.
+version, CUDA tensors launch the kernel or raise. The plan is group-free,
+and `scan_plain` / `bucket_sums_plain` take a `group`: G2 MSMs run the
+plain version over G2 on every device (the reference has no G2 kernel).
 
 Chunk count: on CUDA, the scan kernel's resident threads on the card (the
 occupancy API at its register count), so one wave fills the card whatever
@@ -52,7 +54,7 @@ import dataclasses
 
 import torch
 
-from ..curve.group import Affine, Jacobian, g1
+from ..curve.group import Affine, GroupOps, Jacobian, g1
 from ..fields import limb
 from ..fields.limb import FQ
 
@@ -166,11 +168,11 @@ def _merge_rounds(off: torch.Tensor) -> tuple:
     return tuple(rounds)
 
 
-def _merge_plain(parts: Jacobian, offsets: torch.Tensor, dev) -> Jacobian:
+def _merge_plain(parts: Jacobian, offsets: torch.Tensor, dev, group: GroupOps = g1) -> Jacobian:
     """Group g = the sum of parts[offsets[g] : offsets[g+1]] in order."""
     off = offsets.long()
     count = off[1:] - off[:-1]
-    out = g1.infinity((count.numel(),), dev)
+    out = group.infinity((count.numel(),), dev)
     have = (count > 0).nonzero()[:, 0]
     start = off[have]
     acc = parts.map(lambda a: a[start])
@@ -179,7 +181,7 @@ def _merge_plain(parts: Jacobian, offsets: torch.Tensor, dev) -> Jacobian:
         sel = (count[have] > r).nonzero()[:, 0]
         if not sel.numel():
             break
-        new = g1.add(acc.map(lambda a: a[sel]), parts.map(lambda a: a[start[sel] + r]))
+        new = group.add(acc.map(lambda a: a[sel]), parts.map(lambda a: a[start[sel] + r]))
         for a, v in zip(acc, new):
             a[sel] = v
         r += 1
@@ -188,17 +190,18 @@ def _merge_plain(parts: Jacobian, offsets: torch.Tensor, dev) -> Jacobian:
     return out
 
 
-def scan_plain(points: Affine, plan: Plan) -> Jacobian:
+def scan_plain(points: Affine, plan: Plan, group: GroupOps = g1) -> Jacobian:
     """The plan's partials (P,): step s advances every chunk by one entry
     as one batched mixed addition."""
     dev = plan.key.device
     E, S, C = plan.entries, plan.steps, plan.chunks
-    parts = g1.infinity((plan.npartials,), dev)
+    F = group.F
+    parts = group.infinity((plan.npartials,), dev)
     if E:
         ent, key = plan.ent.long(), plan.key.long()
         emit = plan.emits()
         slot = torch.cumsum(emit, 0) - 1
-        one = FQ.one(dev).expand(C, FQ.nlimbs)
+        one = F.ones((C,), dev)
         acc = None
         for s in range(S):
             i = torch.arange(C, device=dev) * S + s
@@ -206,27 +209,26 @@ def scan_plain(points: Affine, plan: Plan) -> Jacobian:
             i = i.clamp(max=E - 1)
             e = ent[i]
             y = points.y[e >> 1]
-            y = torch.where((e & 1).bool().unsqueeze(-1), limb.neg(y, FQ), y)
+            y = F.select((e & 1).bool(), F.neg(y), y)
             q = Affine(points.x[e >> 1], y, torch.zeros(C, dtype=torch.bool, device=dev))
             fresh = Jacobian(q.x, q.y, one)
             if acc is None:
                 acc = fresh
             else:
-                acc = g1.select(key[i] != key[i - 1], fresh, g1.add_mixed(acc, q))
+                acc = group.select(key[i] != key[i - 1], fresh, group.add_mixed(acc, q))
             out = (ok & emit[i]).nonzero()[:, 0]
             for a, v in zip(parts, acc):
                 a[slot[i[out]]] = v[out]
     return parts
 
 
-def bucket_sums_plain(points: Affine, plan: Plan) -> Jacobian:
-    """The plan executed in plain torch: `scan_plain`, then the merge
-    rounds."""
-    M, W, B = plan.shape
-    parts = scan_plain(points, plan)
+def bucket_sums_plain(points: Affine, plan: Plan, group: GroupOps = g1) -> Jacobian:
+    """The plan executed in plain torch over `group`: `scan_plain`, then
+    the merge rounds."""
+    parts = scan_plain(points, plan, group)
     for off in plan.rounds:
-        parts = _merge_plain(parts, off, plan.key.device)
-    return parts.map(lambda a: a.reshape(M, W, B, FQ.nlimbs))
+        parts = _merge_plain(parts, off, plan.key.device, group)
+    return parts.map(lambda a: a.reshape(plan.shape + a.shape[1:]))
 
 
 def bucket_sums(points: Affine, plan: Plan) -> Jacobian:

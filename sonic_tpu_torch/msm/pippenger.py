@@ -1,6 +1,6 @@
-"""Multi-scalar multiplication (Pippenger) over G1, in PyTorch.
+"""Multi-scalar multiplication (Pippenger) over G1 and G2, in PyTorch.
 
-Port of `sonic_tpu/msm/pippenger.py` (G1 and signed digits only):
+Port of `sonic_tpu/msm/pippenger.py` (signed digits only):
 
   - scalars split into W + 1 signed c-bit digits (`_signed_digits`);
   - the bucket plan (`make_plan`: every nonzero digit on a finite point,
@@ -10,11 +10,24 @@ Port of `sonic_tpu/msm/pippenger.py` (G1 and signed digits only):
   - the tail in plain torch: buckets weighted-summed, windows combined
     with c doublings each.
 
-`msm_batched` runs M MSMs that share one point table as one plan, one
-kernel launch and one batched tail. `msm_windows` stops before the window
+`group` selects the curve group (`g1` by default, as the reference's
+`msm_g1`; `msm_g2` for G2). G1 bucket sums are kernel 2's; G2 has no
+kernel, as in the reference, and runs the same plan through
+`bucket_sums_plain` over G2, whose Fq2 products are kernel 1's on the card.
+
+`msm_batched` runs M MSMs that share one point table with one batched
+tail. Their digits, plan and bucket sums are built in slices of the M
+axis, each within `budget.STEP_BYTES` at `budget.SLOT_BYTES` a digit
+slot M N W (the reference cuts M the same way,
+`sonic_tpu/msm/pippenger.py:462-490`): one plan over the helper's M = 64
+MSMs at n = 2^16 would need ~49 GB. The slices' bucket sums are
+concatenated along M, so the bucket weighted sum and the window combine
+still run once, whatever the slice count; an MSM whose N W alone exceeds
+the budget runs whole. `slicings` counts the batched calls by (M, N,
+slices). `msm_windows` stops before the window
 combine, so a caller with many MSMs (the prover) finishes them all in one
 batched `combine_windows`. With a mesh, each rank takes a slice of the
-points (`msm_windows`).
+points (`msm_windows`), and the budget applies to that slice.
 
 Window size: c = 6 on CUDA (B = 33 buckets, W = 44 windows), which keeps
 the plain-torch bucket weighted sum short; larger c would cut the scan's
@@ -23,16 +36,21 @@ CPU (the tests' plain path) c follows the reference's CPU `_pick_c`.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
-from ..curve.group import Affine, Jacobian, g1, cat
+from .. import budget
+from ..curve.group import Affine, GroupOps, Jacobian, cat, g1, g2
 from ..fields import constants as C
-from .bucket_acc import bucket_sums, make_plan
+from .bucket_acc import bucket_sums, bucket_sums_plain, make_plan
 
 CUDA_C = 6
 CPU_SMALL_C = 4
+# (M, N, slices of M) -> calls of a batched MSM (M > 1); breakdown's phase
+# tables read it
+slicings: collections.Counter = collections.Counter()
 
 
 def _pick_c(n: int, device) -> int:
@@ -81,53 +99,56 @@ def _signed_digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(outs, -1)
 
 
-def _tree_sum(p: Jacobian, dim: int) -> Jacobian:
-    """Sum a Jacobian batch along batch axis `dim` (negative, counted with
-    the limb axis) as a halving tree of batched complete additions."""
+def _tree_sum(p: Jacobian, dim: int, group: GroupOps) -> Jacobian:
+    """Sum a Jacobian batch along batch axis `dim` (>= 0) as a halving tree
+    of batched complete additions."""
     n = p.x.shape[dim]
     while n > 1:
         h = n // 2
-        s = g1.add(p.map(lambda a: a.narrow(dim, 0, h)), p.map(lambda a: a.narrow(dim, h, h)))
+        s = group.add(p.map(lambda a: a.narrow(dim, 0, h)), p.map(lambda a: a.narrow(dim, h, h)))
         if n % 2:
-            s = cat([s, p.map(lambda a: a.narrow(dim, 2 * h, 1))], s.x.dim() + dim)
+            s = cat([s, p.map(lambda a: a.narrow(dim, 2 * h, 1))], dim)
         p, n = s, s.x.shape[dim]
     return p.map(lambda a: a.squeeze(dim))
 
 
-def _bucket_weighted_sum(buckets: Jacobian) -> Jacobian:
+def _bucket_weighted_sum(buckets: Jacobian, group: GroupOps = g1) -> Jacobian:
     """(..., W, B) -> (..., W): sum_b b * bucket_b = sum_{b>=1} S_b with the
     suffix sums S_b = sum_{j>=b} bucket_j, taken as a log-depth
     (Hillis-Steele) scan, then summed as a halving tree."""
-    s = buckets.map(lambda a: a[..., 1:, :])
-    n = s.x.shape[-2]
+    bd = buckets.x.dim() - group.F.coord_ndim - 1  # the bucket axis
+    s = buckets.map(lambda a: a.narrow(bd, 1, a.shape[bd] - 1))
+    n = s.x.shape[bd]
     step = 1
     while step < n:
-        head = s.map(lambda a: a[..., : n - step, :])
-        tail = s.map(lambda a: a[..., step:, :])
-        added = g1.add(head, tail)
-        s = cat([added, s.map(lambda a: a[..., n - step :, :])], s.x.dim() - 2)
+        head = s.map(lambda a: a.narrow(bd, 0, n - step))
+        tail = s.map(lambda a: a.narrow(bd, step, n - step))
+        added = group.add(head, tail)
+        s = cat([added, s.map(lambda a: a.narrow(bd, n - step, step))], bd)
         step *= 2
-    return _tree_sum(s, -2)
+    return _tree_sum(s, bd, group)
 
 
-def _window_combine(totals: Jacobian, c: int) -> Jacobian:
+def _window_combine(totals: Jacobian, c: int, group: GroupOps = g1) -> Jacobian:
     """(..., W) window totals -> sum_w totals[w] << (c w), by Horner's rule."""
-    W = totals.x.shape[-2]
-    res = totals.map(lambda a: a[..., W - 1, :])
+    wd = totals.x.dim() - group.F.coord_ndim - 1  # the window axis
+    W = totals.x.shape[wd]
+    res = totals.map(lambda a: a.select(wd, W - 1))
     for w in range(W - 2, -1, -1):
         for _ in range(c):
-            res = g1.double(res)
-        res = g1.add(res, totals.map(lambda a: a[..., w, :]))
+            res = group.double(res)
+        res = group.add(res, totals.map(lambda a: a.select(wd, w)))
     return res
 
 
 @dataclasses.dataclass(frozen=True)
 class WindowTotals:
     """MSMs before their window combine: the per-window sums (..., W) of a
-    batch of MSMs that share the window size c."""
+    batch of MSMs that share the window size c, in `group`."""
 
     totals: Jacobian
     c: int
+    group: GroupOps = g1
 
 
 def combine_windows(parts: list[WindowTotals]) -> list[Jacobian]:
@@ -137,15 +158,18 @@ def combine_windows(parts: list[WindowTotals]) -> list[Jacobian]:
     batched chain: the prover finishes its 4m+7 MSMs in one pass."""
     groups: dict = {}
     for i, p in enumerate(parts):
-        groups.setdefault((p.c, p.totals.x.shape[-2]), []).append(i)
+        k = p.group.F.coord_ndim
+        groups.setdefault((p.group, p.c, p.totals.x.shape[-1 - k]), []).append(i)
     out: list = [None] * len(parts)
-    for (c, W), idx in groups.items():
-        flat = [parts[i].totals.map(lambda a: a.reshape(-1, W, a.shape[-1])) for i in idx]
-        res = _window_combine(cat(flat), c)
+    for (group, c, W), idx in groups.items():
+        k = group.F.coord_ndim
+        flat = [parts[i].totals.map(lambda a: a.reshape((-1, W) + a.shape[a.dim() - k :]))
+                for i in idx]
+        res = _window_combine(cat(flat), c, group)
         start = 0
         for i, f in zip(idx, flat):
-            n, lead = f.x.shape[0], parts[i].totals.x.shape[:-2]
-            out[i] = res.map(lambda a: a[start : start + n].reshape(lead + a.shape[-1:]))
+            n, lead = f.x.shape[0], parts[i].totals.x.shape[: -1 - k]
+            out[i] = res.map(lambda a: a[start : start + n].reshape(lead + a.shape[1:]))
             start += n
     return out
 
@@ -158,11 +182,19 @@ def _lay_out(scalars_std: torch.Tensor, c):
     return _signed_digits(scalars_std, c), c, (1 << (c - 1)) + 1
 
 
+def _m_slices(M: int, N: int, W: int) -> list:
+    """[lo, hi) ranges of the M axis, each within the step budget, at
+    least one MSM a slice."""
+    per = budget.per_step(budget.SLOT_BYTES * N * W)
+    return [(lo, min(M, lo + per)) for lo in range(0, M, per)]
+
+
 def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                chunks: int | None = None, mesh=None) -> WindowTotals:
-    """The MSMs of `msm` / `msm_batched` up to their window totals: the
-    bucket plan, one bucket-sums launch (kernel 2) and the bucket weighted
-    sums. `chunks` overrides the plan's chunk count. Finish them with
+                chunks: int | None = None, mesh=None, group: GroupOps = g1) -> WindowTotals:
+    """The MSMs of `msm` / `msm_batched` up to their window totals: a
+    bucket plan and a bucket-sums launch (kernel 2) for each slice of the
+    M axis (`_m_slices`), then the bucket weighted sums of all slices at
+    once. `chunks` overrides the plans' chunk count. Finish them with
     `combine_windows`.
 
     With `mesh` (a 1-D DeviceMesh, see parallel/mesh.py), rank r runs all
@@ -172,7 +204,7 @@ def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
     every rank's windows line up; a rank whose slice is empty contributes
     infinity."""
     if mesh is None:
-        return _windows(points, scalars_std, c, chunks)
+        return _windows(points, scalars_std, c, chunks, group)
     from ..parallel.mesh import row_span, sum_over_ranks
 
     if c is None:
@@ -180,31 +212,57 @@ def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
     lo, hi = row_span(scalars_std.shape[-2], mesh)
     if lo == hi:
         W = _signed_digits(scalars_std[..., :0, :], c).shape[-1]
-        mine = WindowTotals(g1.infinity(scalars_std.shape[:-2] + (W,), scalars_std.device), c)
+        mine = WindowTotals(group.infinity(scalars_std.shape[:-2] + (W,), scalars_std.device), c, group)
     else:
         mine = _windows(Affine(points.x[lo:hi], points.y[lo:hi], points.inf[lo:hi]),
-                        scalars_std[..., lo:hi, :], c, chunks)
+                        scalars_std[..., lo:hi, :], c, chunks, group)
     return sum_over_ranks(mine, mesh)
 
 
-def _windows(points: Affine, scalars_std: torch.Tensor, c, chunks) -> WindowTotals:
-    digits, c, nb = _lay_out(scalars_std, c)
-    sums = bucket_sums(points, make_plan(points.inf, digits, nb, chunks))
+def _windows(points: Affine, scalars_std: torch.Tensor, c, chunks, group: GroupOps) -> WindowTotals:
+    sc = scalars_std if scalars_std.dim() == 3 else scalars_std.unsqueeze(0)
+    M, N, L = sc.shape
+    if c is None:
+        c = _pick_c(N, sc.device)
+    W = -(-L * C.LIMB_BITS // c) + 1  # windows with the top carry window
+    sums, cuts = [], _m_slices(M, N, W)
+    if M > 1:
+        slicings[(M, N, len(cuts))] += 1
+    for lo, hi in cuts:
+        digits, c, nb = _lay_out(sc[lo:hi], c)
+        plan = make_plan(points.inf, digits, nb, chunks)
+        del digits  # a slice's digits and plan go before the next slice's
+        sums.append(bucket_sums(points, plan) if group is g1 else bucket_sums_plain(points, plan, group))
+        del plan
+    sums = cat(sums) if len(sums) > 1 else sums[0]
     if scalars_std.dim() == 2:
         sums = sums.map(lambda a: a[0])
-    return WindowTotals(_bucket_weighted_sum(sums), c)
+    return WindowTotals(_bucket_weighted_sum(sums, group), c, group)
 
 
 def msm(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-        chunks: int | None = None, mesh=None) -> Jacobian:
-    """Sum_i scalars[i] * points[i]. points: Affine batch (N,);
+        chunks: int | None = None, mesh=None, group: GroupOps = g1) -> Jacobian:
+    """Sum_i scalars[i] * points[i]. points: Affine batch (N,) of `group`;
     scalars_std: (N, 16) Fr limbs in STANDARD form. Returns one Jacobian."""
-    return combine_windows([msm_windows(points, scalars_std, c, chunks, mesh)])[0]
+    return combine_windows([msm_windows(points, scalars_std, c, chunks, mesh, group)])[0]
 
 
 def msm_batched(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
-                chunks: int | None = None, mesh=None) -> Jacobian:
+                chunks: int | None = None, mesh=None, group: GroupOps = g1) -> Jacobian:
     """M independent MSMs SHARING one point table: scalars (M, N, 16) ->
-    Jacobian batch (M,). One plan, one kernel launch and one batched tail
-    (per rank, with `mesh`)."""
-    return msm(points, scalars_std, c, chunks, mesh)
+    Jacobian batch (M,). A plan and a kernel launch a slice of M (one
+    slice unless the plan would exceed the step budget), one batched
+    tail (per rank, with `mesh`)."""
+    return msm(points, scalars_std, c, chunks, mesh, group)
+
+
+def msm_g1(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
+           chunks: int | None = None) -> Jacobian:
+    return msm(points, scalars_std, c, chunks, group=g1)
+
+
+def msm_g2(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
+           chunks: int | None = None) -> Jacobian:
+    """Sum_i scalars[i] * points[i] over G2 points (N,) with (N, 2, 24)
+    coordinates."""
+    return msm(points, scalars_std, c, chunks, group=g2)

@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..curve.group import Jacobian, g1
+from ..curve.group import Jacobian
 from ..msm import pippenger
 
 
@@ -76,14 +76,15 @@ def all_to_all_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
 
 
 def sum_over_ranks(part: pippenger.WindowTotals, mesh: DeviceMesh) -> pippenger.WindowTotals:
-    """Each rank's window totals (..., W) gathered and added with g1.add in
-    rank order 0 .. R-1, so every rank holds the same projective values."""
+    """Each rank's window totals (..., W) gathered and added with the
+    group's addition in rank order 0 .. R-1, so every rank holds the same
+    projective values."""
     tot = part.totals
     ranks = all_gather_rows(torch.stack(list(tot)).unsqueeze(0), mesh)
     acc = Jacobian(*ranks[0])
     for r in range(1, ranks.shape[0]):
-        acc = g1.add(acc, Jacobian(*ranks[r]))
-    return pippenger.WindowTotals(acc, part.c)
+        acc = part.group.add(acc, Jacobian(*ranks[r]))
+    return pippenger.WindowTotals(acc, part.c, part.group)
 
 
 def msm_sharded(points, scalars_std: torch.Tensor, mesh: DeviceMesh, c: int | None = None) -> Jacobian:

@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from .. import budget
 from ..fields import limb
 from ..fields.limb import FR
 
@@ -58,6 +59,11 @@ def _pad(c: torch.Tensor, pre: int, post: int, axis: int = 0) -> torch.Tensor:
     return torch.cat(parts, axis) if len(parts) > 1 else c
 
 
+def zero(device=None) -> Laurent:
+    """The zero polynomial: one zero coefficient at X^0."""
+    return Laurent(0, FR.zeros((1,), device))
+
+
 def align(p: Laurent, q: Laurent):
     """Pad both coefficient tensors onto the union exponent range."""
     lo = min(p.offset, q.offset)
@@ -78,6 +84,10 @@ def add(p: Laurent, q: Laurent) -> Laurent:
 def sub(p: Laurent, q: Laurent) -> Laurent:
     a, b, lo = align(p, q)
     return Laurent(lo, limb.sub(a, b, FR))
+
+
+def neg(p: Laurent) -> Laurent:
+    return Laurent(p.offset, limb.neg(p.coeffs, FR))
 
 
 def scale(p: Laurent, c) -> Laurent:
@@ -239,10 +249,18 @@ def evaluate_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
 def div_by_linear_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
     """(f_j(X) - f_j(z_j)) / (X - z_j) for coeffs (M, D, L), zs (M, L) ->
     (fz (M, L), quotients (M, D-1, L) at the same offset). X^0 must lie in
-    the dense span."""
+    the dense span. The instances run in slices within the step budget at
+    `budget.COEFF_BYTES` a coefficient (at least one instance a slice);
+    each instance's result does not depend on the slicing."""
     const_pos = -offset
     if not (0 <= const_pos < coeffs.shape[1]):
         raise ValueError("batched division requires X^0 inside the span")
+    M, D = coeffs.shape[:2]
+    per = budget.per_step(budget.COEFF_BYTES * D)
+    if M > per:
+        outs = [div_by_linear_batched(offset, coeffs[i : i + per], zs[i : i + per])
+                for i in range(0, M, per)]
+        return torch.cat([f for f, _ in outs]), torch.cat([w for _, w in outs])
     fz = evaluate_batched(offset, coeffs, zs)
     chat = coeffs.clone()
     chat[:, const_pos] = limb.sub(coeffs[:, const_pos], fz, FR)
