@@ -88,7 +88,23 @@ torch.cuda.synchronize():
               BIG_PEAK_GIB, and the phase table of one more (peak memory
               per phase, slices of each batched MSM); pr_r, pr_t and
               helper commitments 0 and 63 equal to native host MSMs over
-              the same SRS rows; a tampered proof False.
+              the same SRS rows; a tampered proof False;
+ 11. big batch BASELINE config 5 at its own size (bench.py's
+              _bench_prove_batch): B=64 random_circuit(Random(88), n=2^16,
+              q=8) on phase 10's SRS, their generation and upload timed
+              apart; one prove_batch (the helper streamed over slices of
+              the proofs), its seconds, proofs/s, peak device memory
+              (within BIG_PEAK_GIB) and helper slices; the first kernel-2
+              launch of each (M, W, B, N) timed as it ran and held against
+              bucket_sums_plain as it ran (the first always, the rest
+              while BIG_BATCH_PLAIN_BUDGET_S lasts); proof 32 byte-equal
+              to protocol.prove, all 64 verify True, a tampered one False;
+ 12. big SRS  SRS.new(h_mode="full") at phase 10's d = 458,772 (bench.py's
+              _bench_srs at the big degree): its seconds, peak device
+              memory and fixed-base chunks; rows of all four tables
+              (random ones, e = -d, 0, d, both sides of every chunk
+              boundary) equal to golden.g1_mul/g2_mul on the host; a
+              save_srs / load_srs round trip, timed, all tables equal.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -96,13 +112,16 @@ additions (nonzero digits on finite points), 11 Fq products of 2 * 12^2
 word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
-Every path (phase 3's G2 MSM, phases 5-10) runs with the launch counters
+Every path (phase 3's G2 MSM, phases 5-12) runs with the launch counters
 set to 0 just before it and read just after, and fails if a kernel it uses
 was never launched; phase 9's launches are summed over its ranks. Inside
 every path (on every rank) the first kernel-1 launch of each operand
 shape is held against mont_mul_plain as it runs; the timers leave the
-seconds of these checks out. A kernel-2 plain time (plain_ms) is that of
-the one plain run that checks the launch.
+seconds of these checks out, and a path's peak memory their allocations.
+Phase 11 holds kernel 2 against bucket_sums_plain inside its path; the
+kernel-1 launches of those plain sums stay out of the path's count.
+A kernel-2 plain time (plain_ms) is that of the one plain run that checks
+the launch.
 Every comparison is exact (all values are integers); a failed one raises.
 The line before last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -111,6 +130,7 @@ any result.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import math
@@ -142,6 +162,10 @@ WORLD, WORLD_TIMEOUT_S = 2, 600  # phase 9
 BIG_N, BIG_Q = 1 << 16, 64  # phase 10
 BIG_PEAK_GIB = 40.0  # phase 10: most device memory one prove may allocate
 BIG_PLAIN_BUDGET_S = 60.0  # phase 10: time for kernel 2 against bucket_sums_plain
+BIG_BATCH_B, BIG_BATCH_Q = 64, 8  # phase 11, at phase 10's n
+BIG_BATCH_PLAIN_BUDGET_S = 45.0  # phase 11: time for kernel 2 against bucket_sums_plain
+BIG_SRS_ROWS_CHECKED = 24  # phase 12: random rows a table against golden
+ROW_PROBE = 1 << 18  # phase 12: rows of the fixed_base_mul whose bytes a row are measured
 
 
 def log(msg: str) -> None:
@@ -202,15 +226,75 @@ class Path:
     It keeps the inputs of every kernel-2 launch (of the first
     `keep_sums`, when given; with `sums_by_shape`, of the first launch of
     each plan shape (M, W, B) and point count N), so that kernel 2 can be
-    held against its plain version afterwards. The kernel-1 checks'
-    seconds add up in `Path.check_s`, which the script's timers leave out."""
+    held against its plain version afterwards. With `check_sums_s`, it
+    keeps nothing and instead holds the first launch of each (M, W, B, N)
+    against bucket_sums_plain as it happens: the path's first launch
+    always, a later one while its estimated plain time (its entries at the
+    slowest rate seen so far) fits in what is left of `check_sums_s`
+    seconds; every first launch is timed with CUDA events as it runs
+    (`k2_new`). The checks' seconds add up in `Path.check_s`, which the
+    script's timers leave out, and `peak` is the path's peak device memory
+    without the checks' allocations."""
 
     check_s = 0.0
 
     def __init__(self, name: str, uses=("mont_mul", "bucket_sums"), keep_sums: int | None = None,
-                 sums_by_shape: bool = False):
+                 sums_by_shape: bool = False, check_sums_s: float | None = None):
         self.name, self.uses, self.keep_sums, self.sums_by_shape = name, uses, keep_sums, sums_by_shape
+        self.check_sums_s = check_sums_s
         self.sums, self.sum_shapes, self.shape_count, self.k1_err = [], set(), {}, []
+        self.k2_new, self.k2_err, self.peak = [], [], 0
+
+    def _checking(self):
+        """Enter a check: the path's peak so far is kept, and the check's
+        own allocations will not count (see `_checked`)."""
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        return time.perf_counter()
+
+    def _checked(self, t0: float) -> None:
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        Path.check_s += time.perf_counter() - t0
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+
+    def _check_sums(self, pts, plan, out, events) -> None:
+        """Hold a launch against bucket_sums_plain inline (see the class)."""
+        import torch
+
+        from sonic_tpu_torch.fields import mont_mul
+        from sonic_tpu_torch.msm import bucket_acc
+
+        t0 = self._checking()
+        rate = max((s_ / e_ for e_, s_ in self._rates), default=0.0)
+        ms = events[0].elapsed_time(events[1]) if events else None
+        row = {"shape": list(plan.shape), "npoints": plan.npoints, "entries": plan.entries, "ms": ms,
+               "plain_ms": None}
+        if not self.k2_new or rate * plan.entries <= self.check_sums_s - self._sums_wait:
+            # the plain sums' Fq products are kernel-1 launches on the card:
+            # they bypass the path's kernel-1 checks and leave its count as it was
+            counted, checking = mont_mul.launches, mont_mul.mont_mul
+            mont_mul.mont_mul = self._real[1]
+            try:
+                want = bucket_acc.bucket_sums_plain(pts, plan)
+            finally:
+                mont_mul.mont_mul, mont_mul.launches = checking, counted
+            if not all(torch.equal(g, w) for g, w in zip(out, want)):
+                raise AssertionError(f"{self.name}: kernel 2 {plan.shape} over N={plan.npoints} differs "
+                                     f"from bucket_sums_plain")
+            self.k2_err.append(max(int((g - w).abs().max()) for g, w in zip(out, want)))
+            took = time.perf_counter() - t0
+            row["plain_ms"] = 1e3 * took
+            self._rates.append((max(plan.entries, 1), took))
+            self._sums_wait += took
+        self.k2_new.append(row)
+        self._checked(t0)
 
     def __enter__(self):
         import torch
@@ -219,10 +303,23 @@ class Path:
         from sonic_tpu_torch.msm import bucket_acc, pippenger
 
         self._real = real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
+        self._sums_wait, self._rates = 0.0, []
 
         def sums_keep(pts, plan):
+            key = (plan.shape, plan.npoints)
+            if self.check_sums_s is not None:
+                if key in self.sum_shapes:
+                    return real_sums(pts, plan)
+                self.sum_shapes.add(key)
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if torch.cuda.is_available() else None
+                if events:
+                    events[0].record()
+                out = real_sums(pts, plan)
+                if events:
+                    events[1].record()
+                self._check_sums(pts, plan, out, events)
+                return out
             if self.sums_by_shape:
-                key = (plan.shape, plan.npoints)
                 if key not in self.sum_shapes:
                     self.sum_shapes.add(key)
                     self.sums.append((pts, plan))
@@ -235,11 +332,9 @@ class Path:
             self.shape_count[key] = self.shape_count.get(key, 0) + 1
             out = real_mul(a, b, spec)
             if self.shape_count[key] == 1:
-                if out.is_cuda:
-                    torch.cuda.synchronize(out.device)
-                t0 = time.perf_counter()
+                t0 = self._checking()
                 err = plain_err(out, a, b, spec)
-                Path.check_s += time.perf_counter() - t0
+                self._checked(t0)
                 self.k1_err.append(err)
                 if err:
                     raise AssertionError(f"{self.name}: kernel 1 {spec.name} {tuple(a.shape)} x "
@@ -248,14 +343,22 @@ class Path:
 
         pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_check
         mont_mul.launches = bucket_acc.launches = 0
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         return self
 
     def __exit__(self, *exc):
+        import torch
+
         from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc, pippenger
 
         self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches}
         pippenger.bucket_sums, mont_mul.mont_mul = self._real
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
         if exc[0] is None:
             never = [k for k in self.uses if self.launches[k] == 0]
             if never:
@@ -334,7 +437,7 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
             raise AssertionError(f"phase 9 rank {rank}: SRS.new(mesh) full tables differ from phase 6's")
         del full
     out["launches"] = path.launches
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["peak_gib"] = path.peak / 2**30
     out["k1_err"], out["k2_err"] = path.k1_err, []
     # rank 0's kernel-2 check below runs on memory the other ranks hand back first
     del srs, dc, da, bdcs, bdas, proof, oracle
@@ -358,7 +461,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
 
-    from sonic_tpu_torch import breakdown, fiat_shamir, golden, kernels, native, protocol, serial
+    from sonic_tpu_torch import breakdown, budget, fiat_shamir, golden, kernels, native, protocol, serial
     from sonic_tpu_torch import golden_protocol as gp
     from sonic_tpu_torch.circuit import example_circuit_1, example_circuit_2, random_circuit
     from sonic_tpu_torch.constraints import (
@@ -690,27 +793,34 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
         + f", the rest (powers of x, from_mont, two to_affine) {t_full - sum(parts.values()):.3f} s")
 
-    def scalar(table, i):
+    def row_scalar(d, x, alpha, table, i):
         """The exponent of row i (e = i - d) of a table, as an int mod P."""
-        e = i - SRS_D
-        s = pow(sx, e, gp.P)
+        e = i - d
+        s = pow(x, e, gp.P)
         if table in ("g_ax", "h_ax"):
-            s = salpha * s % gp.P
+            s = alpha * s % gp.P
         return 0 if table == "g_ax" and e == 0 else s
+
+    def scalar(table, i):
+        return row_scalar(SRS_D, sx, salpha, table, i)
 
     def table_rows(tab, idx):
         it = torch.tensor(idx, device=dev)
         return Affine(tab.x[it], tab.y[it], tab.inf[it])
 
+    def golden_rows(srs, x, alpha, idx, label):
+        """Rows idx of each of the four tables equal to golden.g1_mul/g2_mul."""
+        for tname, grp, host_mul, hgen in (("g_x", g1, golden.g1_mul, golden.G1_GEN),
+                                           ("g_ax", g1, golden.g1_mul, golden.G1_GEN),
+                                           ("h_x", g2, golden.g2_mul, golden.G2_GEN),
+                                           ("h_ax", g2, golden.g2_mul, golden.G2_GEN)):
+            got = grp.to_host(table_rows(getattr(srs, tname), idx))
+            if got != [host_mul(hgen, row_scalar(srs.d, x, alpha, tname, i)) for i in idx]:
+                raise AssertionError(f"{label}: {tname} rows differ from golden scalar multiples")
+
     t0 = time.perf_counter()
     idx = sorted(srng.sample(range(rows), SRS_ROWS_CHECKED - 1) + [SRS_D])  # with e = 0
-    for tname, grp, host_mul, hgen in (("g_x", g1, golden.g1_mul, golden.G1_GEN),
-                                       ("g_ax", g1, golden.g1_mul, golden.G1_GEN),
-                                       ("h_x", g2, golden.g2_mul, golden.G2_GEN),
-                                       ("h_ax", g2, golden.g2_mul, golden.G2_GEN)):
-        got = grp.to_host(table_rows(getattr(full, tname), idx))
-        if got != [host_mul(hgen, scalar(tname, i)) for i in idx]:
-            raise AssertionError(f"phase 6: {tname} rows differ from golden scalar multiples")
+    golden_rows(full, sx, salpha, idx, "phase 6")
     log(f"phase 6 checks: {len(idx)} rows of each of the 4 tables equal to golden.g1_mul/g2_mul "
         f"on the host ({time.perf_counter() - t0:.1f} s)")
 
@@ -1031,6 +1141,125 @@ def main() -> int:
         f"{q - 1} equal to native host MSMs over the same SRS rows ({time.perf_counter() - t0:.1f} s)")
     log(f"phase 10: {time.perf_counter() - t10:.1f} s for the phase, circuit generation included")
 
+    # -- phase 11: batch at n = 2^16, BASELINE config 5 (bench.py's _bench_prove_batch) ---------
+    del dc, da, proof, oracle, circuit, assignment
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    B, bq = BIG_BATCH_B, BIG_BATCH_Q
+    brng = random.Random(88)
+    t0 = time.perf_counter()
+    bpairs = [random_circuit(brng, n=n, q=bq) for _ in range(B)]
+    brnds = [gp.Randomness.generate(brng, m=bq) for _ in range(B)]
+    t_gen = time.perf_counter() - t0
+    (bdcs, bdas), t_bup = timed(lambda: (
+        [DeviceCircuit.from_host(c_, device=dev) for c_, _ in bpairs],
+        [DeviceAssignment.from_host(a_, device=dev) for _, a_ in bpairs]))
+    del bpairs
+    log(f"phase 11 big batch: B={B} random_circuit(Random(88), n={n}, q={bq}) on phase 10's SRS "
+        f"(d={d}); host generation {t_gen:.2f} s, upload {t_bup:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card with the SRS")
+    before = collections.Counter(protocol.helper_slicings)
+    with Path("big prove_batch", check_sums_s=BIG_BATCH_PLAIN_BUDGET_S) as bb_path:
+        bbatch, t_bb = timed(lambda: protocol.prove_batch(srs, bdas, bdcs, brnds))
+    paths["big prove_batch"] = bb_path.launches
+    (_, nslices), = (protocol.helper_slicings - before).keys()
+    bb_peak = bb_path.peak / 2**30
+    log(f"phase 11 prove_batch {t_bb:.3f} s (kernel checks left out), {B / t_bb:.3f} proofs/s, "
+        f"{B * n / t_bb:.0f} gates/s; peak device memory {bb_peak:.2f} GiB (limit {BIG_PEAK_GIB:.0f} GiB; "
+        f"the SRS and the {B} circuits on the card included); the helper in {nslices} slices of the "
+        f"proofs; kernel launches: {bb_path.launches}")
+    if bb_peak > BIG_PEAK_GIB:
+        raise AssertionError(f"phase 11: the batch's peak device memory {bb_peak:.2f} GiB exceeds "
+                             f"{BIG_PEAK_GIB} GiB")
+    k1_checked(bb_path, "phase 11")
+    k2_err.extend(bb_path.k2_err)
+    big_batch_k2 = []
+    for row in bb_path.k2_new:
+        row["bound_ms"] = row["entries"] * IMAD_PER_MIXED_ADD / imad_per_ms
+        big_batch_k2.append(row)
+        plain = "not checked" if row["plain_ms"] is None else f"{row['plain_ms']:.1f} ms, equal"
+        log(f"  kernel 2 {tuple(row['shape'])} (M, W, B) over N={row['npoints']}, E={row['entries']}: "
+            f"{row['ms']:.3f} ms as it ran (bound {row['bound_ms']:.3f} ms, "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} %); bucket_sums_plain {plain}")
+    checked = sum(r_["plain_ms"] is not None for r_ in big_batch_k2)
+    log(f"phase 11 kernel 2: the first launch of {checked} of the {len(big_batch_k2)} distinct (M, W, B, N) "
+        f"equal to bucket_sums_plain as it ran (the first always, the rest while the "
+        f"{BIG_BATCH_PLAIN_BUDGET_S:.0f} s budget lasted)")
+    idx = B // 2
+    (single, _), t_single = timed(lambda: protocol.prove(srs, bdas[idx], bdcs[idx], brnds[idx]))
+    if serial.proof_to_bytes(single) != serial.proof_to_bytes(bbatch[idx][0]):
+        raise AssertionError(f"phase 11: proof {idx} of the batch differs from protocol.prove")
+    t0 = time.perf_counter()
+    for b, (p, o) in enumerate(bbatch):
+        if not protocol.verify(srs, bdcs[b], p, o.y, o.z, o.yzs):
+            raise AssertionError(f"phase 11: proof {b} of the batch does not verify")
+    t_bver = time.perf_counter() - t0
+    p, o = bbatch[0]
+    p.pr_a = (p.pr_a + 1) % gp.P
+    if protocol.verify(srs, bdcs[0], p, o.y, o.z, o.yzs):
+        raise AssertionError("phase 11: tampered proof 0 verified")
+    log(f"phase 11 checks: proof {idx} byte-equal to protocol.prove ({t_single:.2f} s), all {B} proofs "
+        f"verify True ({t_bver:.2f} s), tampered proof 0 False; "
+        f"{time.perf_counter() - t11:.1f} s for the phase, circuit generation included")
+
+    # -- phase 12: full SRS.new at the big degree (bench.py's _bench_srs at d = 7n + 20) --------
+    del bdcs, bdas, bbatch, brnds, single, srs, p, o
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    frng = random.Random(12)
+    fx, falpha = frng.randrange(2, gp.P), frng.randrange(2, gp.P)
+    frows = 2 * d + 1
+    rows_a_chunk = {grp.name: fixed_base.chunk_rows(grp) for grp in (g1, g2)}
+    chunks = {k: -(-2 * frows // r) for k, r in rows_a_chunk.items()}  # the tables' two halves in one batch
+    # the bytes a row that budget.BASE_ROW_BYTES stands for: one uncut
+    # fixed_base_mul and its to_affine over ROW_PROBE rows (within a chunk)
+    def bytes_a_row(fn, *args):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        sync()
+        return out, (torch.cuda.max_memory_allocated() - base) / ROW_PROBE
+
+    probe = []
+    for grp in (g1, g2):
+        fixed_base.table(grp, fixed_base.DEFAULT_C, dev)
+        jac, mul_b = bytes_a_row(fixed_base.fixed_base_mul, grp, rand_canonical(FR, ROW_PROBE))
+        aff, aff_b = bytes_a_row(grp.to_affine, jac)
+        probe.append(f"{grp.name} {mul_b:.0f} B a row, its to_affine {aff_b:.0f} B "
+                     f"(unit {budget.BASE_ROW_BYTES[grp.name]} B)")
+        del jac, aff
+    log(f"phase 12 fixed_base_mul over {ROW_PROBE} rows, peak device memory above what it was given: "
+        + "; ".join(probe))
+    with Path("big SRS.new full", uses=("mont_mul",)) as bs_path:
+        big_full, t_bfull = timed(lambda: SRS.new(d, fx, falpha, h_mode="full", device=dev))
+    paths["big SRS.new full"] = bs_path.launches
+    bs_peak = bs_path.peak / 2**30
+    log(f"phase 12 full SRS: SRS.new(h_mode='full') d={d} ({frows} rows a table) {t_bfull:.2f} s "
+        f"(kernel-1 checks left out); peak device memory {bs_peak:.2f} GiB; fixed_base_mul and to_affine "
+        f"in chunks of " + ", ".join(f"{k} {r} rows ({chunks[k]} chunks)" for k, r in rows_a_chunk.items())
+        + f"; kernel launches: {bs_path.launches}")
+    k1_checked(bs_path, "phase 12")
+    t0 = time.perf_counter()
+    edges = {i % frows for k, r in rows_a_chunk.items() for c_ in range(1, chunks[k])
+             for i in (c_ * r - 1, c_ * r)}
+    fidx = sorted(set(frng.sample(range(frows), BIG_SRS_ROWS_CHECKED)) | {0, d, frows - 1} | edges)
+    golden_rows(big_full, fx, falpha, fidx, "phase 12")
+    log(f"phase 12 checks: {len(fidx)} rows of each of the 4 tables (random ones, e = -d, 0, d and both "
+        f"sides of every chunk boundary) equal to golden.g1_mul/g2_mul on the host "
+        f"({time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "srs.npz")
+        _, t_fsave = timed(lambda: serial.save_srs(path, big_full))
+        fsize = os.path.getsize(path)
+        floaded, t_fload = timed(lambda: serial.load_srs(path, device=dev))
+    for tname in ("g_x", "g_ax", "h_x", "h_ax"):
+        if not all(torch.equal(a, b) for a, b in zip(getattr(big_full, tname), getattr(floaded, tname))):
+            raise AssertionError(f"phase 12: {tname} differs after save_srs / load_srs")
+    del floaded, big_full
+    log(f"phase 12 checkpoint: save_srs {t_fsave:.2f} s ({fsize / 1e6:.1f} MB), load_srs {t_fload:.2f} s, "
+        f"all four tables equal; {time.perf_counter() - t12:.1f} s for the phase")
+
     def total(kernel):
         return sum(p[kernel] for p in paths.values())
 
@@ -1046,7 +1275,8 @@ def main() -> int:
          "max_abs_err": max(k2_err), "ms": k2_main[0], "plain_ms": k2_main[1],
          "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None,
          "big": {k: dict(zip(("shape", "npoints", "entries", "ms", "plain_ms", "bound_ms"), v))
-                 for k, v in big_k2.items()}},
+                 for k, v in big_k2.items()},
+         "big_batch": big_batch_k2},
     ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "

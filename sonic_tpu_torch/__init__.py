@@ -27,6 +27,8 @@ Submodules are imported lazily, so `import sonic_tpu_torch.golden` and
 friends stay cheap.
 """
 
+__version__ = "0.3.0"  # the reference package's version
+
 __all__ = [
     "ArithCircuit",
     "Assignment",

@@ -2,11 +2,15 @@
 With BATCH_PHASES, the timers cover `prove_batch` too.
 
     python -m sonic_tpu_torch.breakdown [--device cuda] [--n 1024] [--q 64]
-                                        [--seed 42] [--reps 3] [--profiler]
+                                        [--seed 42] [--reps 3] [--batch B]
+                                        [--profiler]
 
 Sets up what `example.py --n N --q Q` sets up (random_circuit(Random(seed),
 n, q), d = 7n + 20, the verifier-mode SRS built on the device), proves once
-to warm up and times `reps` proves. Then it proves once more with a
+to warm up and times `reps` proves. With --batch B, each prove is one
+`prove_batch` of B such circuits (one random_circuit each, as bench.py's
+batch), timed with PHASES + BATCH_PHASES, and the helper's slices of the
+proofs are printed too. Then it proves once more with a
 synchronizing timer around each phase function of the prover and prints,
 per phase, its seconds, its calls, the kernel-1 launches made inside it
 and its peak device memory, and how many slices of the M axis each shape
@@ -72,7 +76,8 @@ PHASES = [
 ]
 
 # prove_batch's own phase functions (the helper's B*m instances run in the
-# same calls); PHASES' MSM rows time what runs inside them
+# same calls, a slice of the proofs at a time); PHASES' MSM rows time what
+# runs inside them
 BATCH_PHASES = [
     (protocol, "r_x1_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
     (protocol, "r_at_y_batch", "batch: builds r/s/k, s(X,y_j), s(u,Y)"),
@@ -101,11 +106,13 @@ def _sync(device: torch.device) -> None:
 
 class Timings(collections.defaultdict):
     """{label: [seconds, calls, kernel-1 launches, peak device bytes]};
-    `slices` counts the batched MSMs' calls by (M, N, slices of M)."""
+    `slices` counts the batched MSMs' calls by (M, N, slices of M), and
+    `helper` prove_batch's calls by (B, the helper's slices of the proofs)."""
 
     def __init__(self):
         super().__init__(lambda: [0.0, 0, 0, 0])
         self.slices: collections.Counter = collections.Counter()
+        self.helper: collections.Counter = collections.Counter()
 
 
 @contextlib.contextmanager
@@ -120,6 +127,7 @@ def phase_timers(device: torch.device, phases=PHASES):
     acc = Timings()
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in phases]
     before = collections.Counter(pippenger.slicings)
+    helper_before = collections.Counter(protocol.helper_slicings)
     cuda = device.type == "cuda"
     open_peaks: list = []  # peaks of the timed calls in progress, innermost last
 
@@ -157,6 +165,7 @@ def phase_timers(device: torch.device, phases=PHASES):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
         acc.slices.update(pippenger.slicings - before)
+        acc.helper.update(protocol.helper_slicings - helper_before)
 
 
 def phase_table(acc: Timings) -> list:
@@ -168,6 +177,8 @@ def phase_table(acc: Timings) -> list:
         lines.append(f"  {label:40s} {s:10.4f} {calls:6d} {launches:18d} {peak / 2**30:9.2f}")
     for (M, N, k), calls in sorted(acc.slices.items()):
         lines.append(f"  batched MSM M={M} over N={N}: {k} slice(s) of M, {calls} call(s)")
+    for (B, k), calls in sorted(acc.helper.items()):
+        lines.append(f"  prove_batch of {B}: the helper in {k} slice(s) of the proofs, {calls} call(s)")
     return lines
 
 
@@ -201,6 +212,7 @@ def main(argv=None) -> int:
     parser.add_argument("--q", type=int, default=64, help="its linear constraints")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--reps", type=int, default=3, help="timed proves")
+    parser.add_argument("--batch", type=int, default=0, help="prove_batch of this many circuits")
     parser.add_argument("--profiler", action="store_true", help="one more prove under torch.profiler")
     args = parser.parse_args(argv)
 
@@ -209,19 +221,22 @@ def main(argv=None) -> int:
         print("breakdown: --device cuda but torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     rng = random.Random(args.seed)
-    circuit, assignment = random_circuit(rng, n=args.n, q=args.q)
+    pairs = [random_circuit(rng, n=args.n, q=args.q) for _ in range(max(1, args.batch))]
     d = 7 * args.n + 20
     x, alpha = rng.randrange(2, gp.P), rng.randrange(2, gp.P)
     with distributed.launched_mesh() as mesh:
         # with a mesh, every rank runs everything and rank 0 reports
         say = print if mesh is None or mesh.get_local_rank() == 0 else (lambda *a, **k: None)
         srs = SRS.new(d, x, alpha, h_mode="verifier", n_hints=[args.n], device=device, mesh=mesh)
-        dc = DeviceCircuit.from_host(circuit, device=device)
-        da = DeviceAssignment.from_host(assignment, device=device)
-        rnd = gp.Randomness.generate(rng, m=args.q)
+        dcs = [DeviceCircuit.from_host(c, device=device) for c, _ in pairs]
+        das = [DeviceAssignment.from_host(a, device=device) for _, a in pairs]
+        rnds = [gp.Randomness.generate(rng, m=args.q) for _ in pairs]
+        phases = PHASES + (BATCH_PHASES if args.batch else [])
 
         def prove():
-            return protocol.prove(srs, da, dc, rnd, mesh=mesh)
+            if args.batch:
+                return protocol.prove_batch(srs, das, dcs, rnds, mesh=mesh)
+            return protocol.prove(srs, das[0], dcs[0], rnds[0], mesh=mesh)
 
         prove()  # warm-up
         if device.type == "cuda":
@@ -236,16 +251,17 @@ def main(argv=None) -> int:
         ranks = f", {mesh.size()} ranks" if mesh is not None else ""
         peak = (f", peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
                 if device.type == "cuda" else "")
-        say(f"n={args.n} q={args.q} d={d} on {device}{ranks}: prove s {times} "
+        what = f"prove_batch of {args.batch}" if args.batch else "prove"
+        say(f"n={args.n} q={args.q} d={d} on {device}{ranks}: {what} s {times} "
             f"median {statistics.median(times)}{peak}", flush=True)
 
-        with phase_timers(device, PHASES + (PARALLEL_PHASES if mesh is not None else [])) as acc:
+        with phase_timers(device, phases + (PARALLEL_PHASES if mesh is not None else [])) as acc:
             _sync(device)
             t0 = time.perf_counter()
             prove()
             _sync(device)
             wall = time.perf_counter() - t0
-        say(f"prove with phase timers: {wall} s", flush=True)
+        say(f"{what} with phase timers: {wall} s", flush=True)
         say("\n".join(phase_table(acc)), flush=True)
 
         if args.profiler:

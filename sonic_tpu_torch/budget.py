@@ -1,24 +1,43 @@
 """How much device memory one step of a batched computation may take.
 
 The reference bounds its batched MSM by bytes of bucket grid, one module
-constant (`sonic_tpu/msm/pippenger.py:462-469`, 3 << 29). The port runs
-three batched steps in slices of their batch axis, and bounds all three
-by one number of bytes, STEP_BYTES. Each step states what one unit of
-its work holds at its peak, temporaries included, and a slice takes as
-many units as fit (`per_step`), at least one:
+constant (`sonic_tpu/msm/pippenger.py:462-469`, 3 << 29), and cuts its
+fixed-base multiplication into chunks of 2^16 rows
+(`sonic_tpu/msm/fixed_base.py:89-117`). The port runs its batched steps in
+slices of their batch axis, and bounds all of them by one number of
+bytes, STEP_BYTES. Each step states what one unit of its work holds at
+its peak, temporaries included, and a slice takes as many units as fit
+(`per_step`), at least one:
 
   - `msm/pippenger.py`: a digit slot M N W of a bucket plan, SLOT_BYTES
     (the plan's index code holds ~93 B of int64 temporaries an entry);
   - `constraints.py`: an Fr product of the s(X, y) weighted sums,
     PRODUCT_BYTES (the product, its two expanded operands and the adds of
     its sum, ~12 limb vectors of 128 B);
-  - `poly/laurent.py`: a coefficient of a batched division, COEFF_BYTES
-    (the helper's 64 x 196,609 at n = 2^16 in one piece raised the
-    prove's peak to 37.46 GiB on an NVIDIA H100 80GB HBM3, 700.00 W).
+  - `poly/laurent.py`: a coefficient of a batched division or of a
+    batched product's transform, and `protocol.prove_batch`: a
+    coefficient of the sum r(X, y) + s(X, y) that feeds t, COEFF_BYTES
+    (the helper's 64 x 196,609 division at n = 2^16 in one piece raised
+    the prove's peak to 37.46 GiB; a `limb.add` holds ~10 operand-sized
+    temporaries at once);
+  - `protocol.prove_batch`: a coefficient of one helper instance's
+    s(X, y_j), HELPER_BYTES, for what the helper holds over a slice of
+    the proofs: the polynomial, an opening's quotient and its
+    standard-form scalars (3 x 128 B), the s(X, y_j) build's products at
+    one q (PRODUCT_BYTES for each of the n, a third of the coefficients:
+    512 B) and the slice's stacked weights (~200 B at q = m = 8);
+  - `msm/fixed_base.py`: a row of `fixed_base_mul` in each group,
+    BASE_ROW_BYTES (chip_smoke.py phase 12 measures a row over 2^18 rows:
+    14,033 B in G1 and 41,637 B in G2; a row's `to_affine`, which
+    `SRS.new` runs a chunk at a time too, 1,538 and 11,489 B).
 
-At n = 2^16, q = 64 this cuts the helper's batched MSMs over 3n + 1
-points into slices of 15, its s(X, y_j) builds into 2 q at a time and its
-batched divisions into slices of 21. Nothing is cut at n <= 1024.
+Measured on an NVIDIA H100 80GB HBM3, 700.00 W (`chip_smoke.py`). At
+n = 2^16, q = 64 this cuts the helper's batched MSMs over 3n + 1 points
+into slices of 15, its s(X, y_j) builds into 2 q at a time and its
+batched divisions into slices of 21; a batch of 64 proofs at n = 2^16,
+q = 8 runs its helper in 11 slices of the proofs; the SRS tables at
+d = 458,772 are built in chunks of 898,779 G1 and 306,900 G2 rows.
+Nothing is cut at n <= 1024 or d <= 2^16.
 """
 from __future__ import annotations
 
@@ -26,6 +45,8 @@ STEP_BYTES = 12 << 30
 SLOT_BYTES = 96
 PRODUCT_BYTES = 12 * 128
 COEFF_BYTES = 24 * 128
+HELPER_BYTES = 10 * 128
+BASE_ROW_BYTES = {"G1": 14 << 10, "G2": 41 << 10}
 
 
 def per_step(unit_bytes: int) -> int:

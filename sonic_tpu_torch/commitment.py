@@ -91,7 +91,8 @@ def open_poly_batched(srs: SRS, zs, offset: int, coeffs, mesh=None):
     fz, w = div_by_linear_batched(offset, coeffs, zs)
     _check_range("openPoly", srs, offset, offset + w.shape[1] - 1)
     pts = _slice_table(srs.g_x, offset + srs.d, w.shape[1])
-    return fz, msm_windows(pts, limb.from_mont(w, FR), mesh=mesh)
+    w = limb.from_mont(w, FR)  # the Montgomery quotients go before the MSM
+    return fz, msm_windows(pts, w, mesh=mesh)
 
 
 def pcv(srs: SRS, maxm: int, commitment, z: int, v: int, w) -> bool:

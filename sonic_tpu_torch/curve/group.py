@@ -40,6 +40,9 @@ class Jacobian:
         return Jacobian(fn(self.x), fn(self.y), fn(self.z))
 
 
+Point = Jacobian
+
+
 @dataclasses.dataclass(frozen=True)
 class Affine:
     """Affine point batch: x, y coordinates; inf (...,) bool, True = infinity."""
@@ -169,6 +172,11 @@ class GroupOps:
     def infinity(self, shape=(), device=None) -> Jacobian:
         F = self.F
         return Jacobian(F.zeros(shape, device), F.ones(shape, device), F.zeros(shape, device))
+
+    def affine_infinity(self, shape=(), device=None) -> Affine:
+        F = self.F
+        return Affine(F.zeros(shape, device), F.zeros(shape, device),
+                      torch.ones(shape, dtype=torch.bool, device=device))
 
     def generator(self, device=None) -> Affine:
         t = self.from_host([self.gen], device)
@@ -317,5 +325,15 @@ def _scalar_bits_msb(scalar_std: torch.Tensor, nbits: int) -> torch.Tensor:
     return bits.movedim(-1, 0)
 
 
-g1 = GroupOps(_FqOps, "G1", (C.G1_GEN_X, C.G1_GEN_Y))
-g2 = GroupOps(_Fq2Ops, "G2", (C.G2_GEN_X, C.G2_GEN_Y))
+class G1(GroupOps):
+    def __init__(self):
+        super().__init__(_FqOps, "G1", (C.G1_GEN_X, C.G1_GEN_Y))
+
+
+class G2(GroupOps):
+    def __init__(self):
+        super().__init__(_Fq2Ops, "G2", (C.G2_GEN_X, C.G2_GEN_Y))
+
+
+g1 = G1()
+g2 = G2()

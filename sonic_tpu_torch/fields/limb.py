@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -437,3 +438,15 @@ def powers(z, spec: FieldSpec, count: int):
         if out.shape[0] < count:
             zk = sqr(zk, spec)
     return out
+
+
+# Convenience partials for the two concrete fields (the reference's names)
+
+fr_add = partial(add, spec=FR)
+fr_sub = partial(sub, spec=FR)
+fr_mul = partial(mul, spec=FR)
+fr_inv = partial(inv, spec=FR)
+fq_add = partial(add, spec=FQ)
+fq_sub = partial(sub, spec=FQ)
+fq_mul = partial(mul, spec=FQ)
+fq_inv = partial(inv, spec=FQ)

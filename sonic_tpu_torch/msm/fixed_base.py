@@ -18,23 +18,31 @@ need no masking.
 
 The table is built on the host (c W doublings and W (2^c - 1) additions of
 the golden affine law, about half a second per group) and uploaded once;
-it is compared in affine form, so how it is built does not matter. The
-reference's pad-to-256 rows and `max_chunk` split existed for XLA compiles
-and are not ported.
+it is compared in affine form, so how it is built does not matter. Large
+batches run in chunks of rows, as the reference's `max_chunk` split
+does, but sized by the step budget (`budget.BASE_ROW_BYTES` a row of each
+group) rather than by the reference's 2^16-row compile guard: the G2
+tables at d = 458,772 are 1.84 M rows of Fq2 Jacobians. The reference's
+pad-to-256 rows existed for XLA compiles and is not ported.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import golden
-from ..curve.group import Affine, GroupOps, Jacobian
-from .pippenger import _digits
+from .. import budget, golden
+from ..curve.group import Affine, GroupOps, Jacobian, cat
+from .pippenger import DEFAULT_C, _digits
 
-DEFAULT_C = 8
 SCALAR_BITS = 256  # 16 limbs of 16 bits
 
 _TABLE_CACHE: dict = {}
 _HOST_ADD = {"G1": golden.g1_add, "G2": golden.g2_add}
+
+
+def chunk_rows(group: GroupOps) -> int:
+    """Rows of one `fixed_base_mul` chunk: as many as the step budget
+    holds at `budget.BASE_ROW_BYTES` a row of the group."""
+    return budget.per_step(budget.BASE_ROW_BYTES[group.name])
 
 
 def table(group: GroupOps, c: int, device) -> Affine:
@@ -63,7 +71,14 @@ def table(group: GroupOps, c: int, device) -> Affine:
 
 def fixed_base_mul(group: GroupOps, scalars_std: torch.Tensor, c: int = DEFAULT_C) -> Jacobian:
     """scalars (N, 16) standard-form Fr limbs -> (N,) Jacobian batch of
-    s_i * generator: W gathered mixed additions, each batched over N."""
+    s_i * generator: W gathered mixed additions, each batched over N.
+
+    Above `chunk_rows(group)` rows the batch runs in chunks of that many
+    rows, as the reference's `max_chunk` split does; the rows do not
+    depend on the chunking."""
+    n, rows = scalars_std.shape[0], chunk_rows(group)
+    if n > rows:
+        return cat([fixed_base_mul(group, scalars_std[i : i + rows], c) for i in range(0, n, rows)])
     tab = table(group, c, scalars_std.device)
     digits = _digits(scalars_std, c)  # (N, W)
     acc = group.infinity((scalars_std.shape[0],), scalars_std.device)

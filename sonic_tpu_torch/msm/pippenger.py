@@ -11,8 +11,9 @@ Port of `sonic_tpu/msm/pippenger.py` (signed digits only):
     with c doublings each.
 
 `group` selects the curve group (`g1` by default, as the reference's
-`msm_g1`; `msm_g2` for G2). G1 bucket sums are kernel 2's; G2 has no
-kernel, as in the reference, and runs the same plan through
+`msm_g1`; `msm_g2` for G2); `msm(g1, points, scalars)`, the reference's
+order, runs too (`group_first_too`). G1 bucket sums are kernel 2's; G2
+has no kernel, as in the reference, and runs the same plan through
 `bucket_sums_plain` over G2, whose Fq2 products are kernel 1's on the card.
 
 `msm_batched` runs M MSMs that share one point table with one batched
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import torch
 
@@ -46,6 +48,7 @@ from ..curve.group import Affine, GroupOps, Jacobian, cat, g1, g2
 from ..fields import constants as C
 from .bucket_acc import bucket_sums, bucket_sums_plain, make_plan
 
+DEFAULT_C = 8  # the reference's default window size (bits); the fixed-base tables' c
 CUDA_C = 6
 CPU_SMALL_C = 4
 # (M, N, slices of M) -> calls of a batched MSM (M > 1); breakdown's phase
@@ -240,6 +243,23 @@ def _windows(points: Affine, scalars_std: torch.Tensor, c, chunks, group: GroupO
     return WindowTotals(_bucket_weighted_sum(sums, group), c, group)
 
 
+def group_first_too(fn):
+    """Let `fn(points, scalars_std, ..., group=g1)` also be called in the
+    reference's order, `fn(group, points, scalars_std, ...)`: a leading
+    GroupOps becomes the `group` keyword."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if args and isinstance(args[0], GroupOps):
+            if "group" in kwargs:
+                raise TypeError(f"{fn.__name__}: group given twice")
+            return fn(*args[1:], group=args[0], **kwargs)
+        return fn(*args, **kwargs)
+
+    return call
+
+
+@group_first_too
 def msm(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
         chunks: int | None = None, mesh=None, group: GroupOps = g1) -> Jacobian:
     """Sum_i scalars[i] * points[i]. points: Affine batch (N,) of `group`;
@@ -247,6 +267,7 @@ def msm(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
     return combine_windows([msm_windows(points, scalars_std, c, chunks, mesh, group)])[0]
 
 
+@group_first_too
 def msm_batched(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
                 chunks: int | None = None, mesh=None, group: GroupOps = g1) -> Jacobian:
     """M independent MSMs SHARING one point table: scalars (M, N, 16) ->

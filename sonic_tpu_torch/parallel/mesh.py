@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..curve.group import Jacobian
+from ..curve.group import GroupOps, Jacobian, g1
 from ..msm import pippenger
 
 
@@ -87,8 +87,12 @@ def sum_over_ranks(part: pippenger.WindowTotals, mesh: DeviceMesh) -> pippenger.
     return pippenger.WindowTotals(acc, part.c, part.group)
 
 
-def msm_sharded(points, scalars_std: torch.Tensor, mesh: DeviceMesh, c: int | None = None) -> Jacobian:
-    """Sum_i scalars[i] * points[i] with the point axis sharded over the
-    mesh (scalars (N, 16), or (M, N, 16) for M MSMs sharing the points);
-    the same Jacobian on every rank."""
-    return pippenger.msm(points, scalars_std, c, mesh=mesh)
+@pippenger.group_first_too
+def msm_sharded(points, scalars_std: torch.Tensor, mesh: DeviceMesh, c: int | None = None,
+                group: GroupOps = g1) -> Jacobian:
+    """Sum_i scalars[i] * points[i] over `group` (G1 by default) with the
+    point axis sharded over the mesh (scalars (N, 16), or (M, N, 16) for M
+    MSMs sharing the points); the same Jacobian on every rank. The
+    reference's order, msm_sharded(group, points, scalars_std, mesh, c),
+    runs too."""
+    return pippenger.msm(points, scalars_std, c, mesh=mesh, group=group)

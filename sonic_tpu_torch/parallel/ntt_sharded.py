@@ -70,25 +70,19 @@ def splittable(out_len: int, world: int) -> bool:
     return r % world == 0 and c % world == 0
 
 
-def _sub_ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Unscaled radix-2 NTTs along axis 0 of (n, ..., L)."""
-    n = a.shape[0]
-    return base._ntt(a, base._twiddles(n, inverse, a.device), n)
-
-
 def _four_step(x: torch.Tensor, R: int, Cc: int, mesh, inverse: bool) -> torch.Tensor:
     """This rank's column block (R, C/D, L) of the (R, C) view -> its row
     block of the transform, (C, R/D, L): [k2, i] = X[k1 + R k2] with
     k1 = r R/D + i."""
     D, r = mesh.size(), mesh.get_local_rank()
     cl, L = Cc // D, x.shape[-1]
-    a = _sub_ntt(x, inverse)  # (R, C/D, L): [k1, n2 - r C/D]
+    a = base.ntt_batched(x, inverse)  # (R, C/D, L): [k1, n2 - r C/D]
     k1 = torch.arange(R)[:, None]
     n2 = torch.arange(cl)[None, :] + r * cl
     tw = _wn_table(R * Cc, inverse, x.device)[((k1 * n2) % (R * Cc)).to(x.device)]
     a = all_to_all_rows(limb.mul(a, tw, FR), mesh)  # chunk s from rank s: its columns of my rows
     a = a.reshape(D, R // D, cl, L).permute(0, 2, 1, 3).reshape(Cc, R // D, L)
-    return _sub_ntt(a, inverse)
+    return base.ntt_batched(a, inverse)
 
 
 def _my_columns(coeffs: torch.Tensor, R: int, Cc: int, mesh) -> torch.Tensor:

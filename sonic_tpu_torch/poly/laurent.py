@@ -233,12 +233,19 @@ def add_batched(offset_a: int, a: torch.Tensor, offset_b: int, b: torch.Tensor):
 
 
 def mul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, Da, L) x (M, Db, L) -> (M, Da+Db-1, L); NTT at the threshold."""
-    if a.shape[1] * b.shape[1] >= _ntt_threshold():
-        from .ntt import poly_mul_ntt
+    """(M, Da, L) x (M, Db, L) -> (M, Da+Db-1, L); NTT at the threshold,
+    its instances in slices within the step budget at `budget.COEFF_BYTES`
+    a coefficient of the transform (at least one instance a slice: the
+    proof batch's 64 t products at n = 2^16 are transforms of 2^19)."""
+    if a.shape[1] * b.shape[1] < _ntt_threshold():
+        return _conv_coeffs(a, b)
+    from .ntt import poly_mul_ntt
 
-        return poly_mul_ntt(a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
-    return _conv_coeffs(a, b)
+    size = 1 << (a.shape[1] + b.shape[1] - 2).bit_length()  # the transform's length
+    per = budget.per_step(budget.COEFF_BYTES * size)
+    outs = [poly_mul_ntt(a[i : i + per].transpose(0, 1), b[i : i + per].transpose(0, 1)).transpose(0, 1)
+            for i in range(0, a.shape[0], per)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def evaluate_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):

@@ -1,10 +1,11 @@
 """Number-theoretic transform over Fr, in PyTorch.
 
-Port of `sonic_tpu/poly/ntt.py`: the radix-2 transform (`_ntt_jit`) and
-`poly_mul_ntt`. Fr - 1 = 2^32 * odd, so power-of-two sizes up to 2^32 work.
-Each butterfly stage is one batched Fr multiply (kernel 1 on CUDA) plus an
-add and a sub over all N/2 pairs. The four-step split (`_FOUR_STEP_MIN`)
-existed to keep XLA programs small and is left out.
+Port of `sonic_tpu/poly/ntt.py`: the radix-2 transform (`_ntt_jit`,
+`ntt_batched`) and `poly_mul_ntt`. Fr - 1 = 2^32 * odd, so power-of-two
+sizes up to 2^32 work. Each butterfly stage is one batched Fr multiply
+(kernel 1 on CUDA) plus an add and a sub over all N/2 pairs. The
+four-step split (`_FOUR_STEP_MIN`) existed to keep XLA programs small and
+is left out.
 
 Coefficients are (N, ..., L): trailing batch axes ride along.
 """
@@ -64,15 +65,23 @@ def _ntt(a: torch.Tensor, tw: torch.Tensor, n: int) -> torch.Tensor:
     return a
 
 
-def ntt(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def ntt_batched(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """In-order NTT along axis 0 of (N, ..., L) Montgomery coefficients, N a
-    power of two; the inverse includes the 1/N scaling."""
+    power of two. Does NOT apply the inverse's 1/N scaling (the sharded
+    four-step transform's sub-transforms leave it to their caller)."""
     n = coeffs.shape[0]
     assert n & (n - 1) == 0, "NTT size must be a power of two"
     if n == 1:
         return coeffs
-    out = _ntt(coeffs, _twiddles(n, inverse, coeffs.device), n)
-    if inverse:
+    return _ntt(coeffs, _twiddles(n, inverse, coeffs.device), n)
+
+
+def ntt(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """In-order NTT along axis 0 of (N, ..., L) Montgomery coefficients, N a
+    power of two; the inverse includes the 1/N scaling."""
+    n = coeffs.shape[0]
+    out = ntt_batched(coeffs, inverse)
+    if inverse and n > 1:
         out = limb.mul(out, FR.from_int(pow(n, -1, C.R_MOD), device=out.device), FR)
     return out
 

@@ -15,8 +15,11 @@ and PyTorch provers compare bit for bit.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from . import budget
 from . import golden_protocol as gp
 from .commitment import (
     commit_poly,
@@ -50,6 +53,9 @@ from .poly import laurent
 from .poly.laurent import Laurent, evaluate
 from .signature import hsc_assemble, hsc_checks, hsc_prove_device
 from .srs import SRS
+
+# (B, helper slices) -> calls of prove_batch; breakdown's phase tables read it
+helper_slicings: collections.Counter = collections.Counter()
 
 
 def _prove_compute(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, v_m,
@@ -182,13 +188,37 @@ def _check_t_hole(t_consts) -> None:
         )
 
 
+def _proof_slices(B: int, unit_bytes: int) -> list:
+    """[lo, hi) ranges of the proof axis, as even as the step budget
+    allows at `unit_bytes` a proof, at least one proof a slice."""
+    k = -(-B // budget.per_step(unit_bytes))
+    return [(B * i // k, B * (i + 1) // k) for i in range(k)]
+
+
+def _helper_slices(B: int, m: int, n: int) -> list:
+    """The helper's slices of the proofs: a proof carries m helper
+    instances of 3n + 1 coefficients at `budget.HELPER_BYTES` a
+    coefficient. One slice at n <= 1024."""
+    return _proof_slices(B, budget.HELPER_BYTES * m * (3 * n + 1))
+
+
+def _cat(parts: list) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=None) -> list:
     """B independent, shape-identical circuits in one device pipeline
-    (BASELINE config 5). Every stage batches over the proof axis: one
-    r'(X,1) build, one batched t(X,y) product, batched openings, and the
-    helper's B*m instances flattened into single batched pipelines. All
-    B(4m+7) MSMs finish in ONE `combine_windows`, then one batched
-    to_affine and one fetch, as in `prove`.
+    (BASELINE config 5). zkP_1-3 batch over the proof axis: one r'(X,1)
+    build, batched t(X,y) products, batched commitments and openings. The
+    builds over the circuits run over slices of the proofs, each
+    slice's circuits stacked in turn (one slice at n <= 1024): zkP_2's
+    s(X, y_b), k(y_b) and t(X, y_b), and the helper (`_helper_slices`),
+    which streams: each slice builds its proofs' m s(X, y_j) and
+    s(u, Y), commits and opens them as batched pipelines, keeps only its
+    MSMs' window totals and its evaluations, and frees the rest before
+    the next slice. All B(4m+7) MSMs finish in ONE `combine_windows`,
+    then one batched to_affine and one fetch, as in `prove`;
+    `helper_slicings` counts the calls by (B, slices).
 
     Equal to B single `prove` calls, byte for byte (hsc u and v reduced
     mod P as `prove` does). Returns [(Proof, RndOracle)] in input order.
@@ -203,8 +233,8 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
             f"Parameter d is not large enough: {srs.d} should be > {7 * n}"
         )
     dev = assignments[0].aL.device
-    asg = stack_assignments(assignments)
-    cir = stack_circuits(circuits)
+    cut = _helper_slices(B, m, n)
+    helper_slicings[(B, len(cut))] += 1
 
     def fr(vals, *shape):
         return FR.from_int(vals, device=dev).reshape(shape + (FR.nlimbs,))
@@ -217,39 +247,68 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
 
     # zkP_1: blinded r'(X, 1) and its commitments
     off_r = -(2 * n + 4)
-    r1 = r_x1_batch(asg, cns)  # (B, 3n+5, L)
+    r1 = r_x1_batch(stack_assignments(assignments), cns)  # (B, 3n+5, L)
     commit_r = commit_poly_batched(srs, n, off_r, r1, mesh=mesh)
-    # zkP_2: t(X, y_b) = r'(X,1)(r'(X,y_b) + s(X,y_b)) - k(y_b)
-    s_y = s_at_y_batch(cir, ys)  # (B, 3n+1, L) at -n
-    off_sum, rs = laurent.add_batched(off_r, r_at_y_batch(r1, ys, off_r), -n, s_y)
-    t_c = laurent.mul_batched(r1, rs)
+    # zkP_2: t(X, y_b) = r'(X,1)(r'(X,y_b) + s(X,y_b)) - k(y_b), and
+    # s(z_b, y_b), built a slice of the proofs at a time (the sum r + s of
+    # 4n + 5 coefficients at `budget.COEFF_BYTES` a coefficient: a limb.add
+    # holds ~10 operand-sized temporaries); the commitment batches over
+    # all B
+    t_c, szy = [], []
+    for lo, hi in _proof_slices(B, budget.COEFF_BYTES * (4 * n + 5)):
+        cir = stack_circuits(circuits[lo:hi])
+        s_y = s_at_y_batch(cir, ys[lo:hi])  # (k, 3n+1, L) at -n
+        k_y = k_at_y_batch(cir, n, ys[lo:hi])
+        del cir
+        szy.append(laurent.evaluate_batched(-n, s_y, zs[lo:hi]))
+        r1_k = r1[lo:hi]
+        off_sum, rs = laurent.add_batched(off_r, r_at_y_batch(r1_k, ys[lo:hi], off_r), -n, s_y)
+        del s_y
+        t_k = laurent.mul_batched(r1_k, rs)
+        del rs
+        ci = -(off_r + off_sum)
+        t_k[:, ci] = limb.sub(t_k[:, ci], k_y, FR)
+        t_c.append(t_k)
+    t_c, szy = _cat(t_c), _cat(szy)
     off_t = off_r + off_sum
-    ci = -off_t
-    t_c[:, ci] = limb.sub(t_c[:, ci], k_at_y_batch(cir, n, ys), FR)
     commit_t = commit_poly_batched(srs, srs.d, off_t, t_c, check_hole=False, mesh=mesh)
-    # zkP_3: openings of r' at z_b and y_b z_b, of t at z_b; s(z_b, y_b)
+    # zkP_3: openings of r' at z_b and y_b z_b, then (r' gone) of t at z_b
     a_m, wa = open_poly_batched(srs, zs, off_r, r1, mesh)
     b_m, wb = open_poly_batched(srs, limb.mul(ys, zs, FR), off_r, r1, mesh)
+    del r1
     _, wt = open_poly_batched(srs, zs, off_t, t_c, mesh)
-    szy = laurent.evaluate_batched(-n, s_y, zs)
-    # helper: all B*m instances in flat batched pipelines (check_hole=False:
-    # s(X, y)'s X^0 and s(u, Y)'s Y^0 coefficients are zero by construction)
-    s_flat = s_at_y_batch(cir, ys_h).flatten(0, 1)  # (B*m, 3n+1, L)
-    ys_h = ys_h.flatten(0, 1)
-    cms = commit_poly_batched(srs, srs.d, -n, s_flat, check_hole=False, mesh=mesh)
-    fzs, ws = open_poly_batched(srs, zs_h, -n, s_flat, mesh)
-    _, w2 = open_poly_batched(srs, us.repeat_interleave(m, 0), -n, s_flat, mesh)
-    su = s_at_u_batch(cir, us)  # (B, 2n+q+1, L) at -n
-    c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False, mesh=mesh)
-    s2, qs = open_poly_batched(srs, ys_h, -n, su.repeat_interleave(m, 0), mesh)
-    _, qv = open_poly_batched(srs, vs, -n, su, mesh)
+    t_const = t_c[:, ci].clone()
+    del t_c
+
+    # helper, a slice of the proofs at a time (check_hole=False: s(X, y)'s
+    # X^0 and s(u, Y)'s Y^0 coefficients are zero by construction); each
+    # kind of MSM keeps its slices' window totals in proof order
+    kinds = [[] for _ in range(6)]  # cms, ws, w2, qs, c, qv
+    fzs, s2 = [], []
+    for lo, hi in cut:
+        cir = stack_circuits(circuits[lo:hi])
+        s = s_at_y_batch(cir, ys_h[lo:hi]).flatten(0, 1)  # (k m, 3n+1, L)
+        su = s_at_u_batch(cir, us[lo:hi])  # (k, 2n+q+1, L) at -n
+        del cir
+        u_rep = us[lo:hi].repeat_interleave(m, 0)
+        cms = commit_poly_batched(srs, srs.d, -n, s, check_hole=False, mesh=mesh)
+        fz, ws = open_poly_batched(srs, zs_h[lo * m : hi * m], -n, s, mesh)
+        _, w2 = open_poly_batched(srs, u_rep, -n, s, mesh)
+        del s
+        c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False, mesh=mesh)
+        s2_k, qs = open_poly_batched(srs, ys_h[lo:hi].flatten(0, 1), -n, su.repeat_interleave(m, 0), mesh)
+        _, qv = open_poly_batched(srs, vs[lo:hi], -n, su, mesh)
+        del su
+        for kind, part in zip(kinds, (cms, ws, w2, qs, c, qv)):
+            kind.append(part)
+        fzs.append(fz)
+        s2.append(s2_k)
 
     # ONE window combine, ONE batched to_affine + fetch for all B(4m+7)
     # points, and one fetch for the 4B + 2Bm scalars
-    pts = jacobians_to_host(
-        stack_points(combine_windows([commit_r, commit_t, wa, wb, wt, cms, ws, w2, qs, c, qv]))
-    )
-    evs = [int(v) for v in FR.to_int(torch.cat([a_m, b_m, szy, t_c[:, ci], fzs, s2], 0))]
+    pts = jacobians_to_host(stack_points(combine_windows(
+        [commit_r, commit_t, wa, wb, wt] + [part for kind in kinds for part in kind])))
+    evs = [int(v) for v in FR.to_int(torch.cat([a_m, b_m, szy, t_const] + fzs + s2, 0))]
     a_i, b_i, s_i, tc_i = (evs[k * B : (k + 1) * B] for k in range(4))
     _check_t_hole(tc_i)
     fzs_i, s2_i = evs[4 * B : 4 * B + B * m], evs[4 * B + B * m :]

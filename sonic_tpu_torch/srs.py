@@ -10,8 +10,8 @@ contiguous slice:
     h_x, h_ax   = the same over G2 (h_ax HAS the e = 0 row, SRS.hs:40-41)
 
 Generation: powers of x by log-depth ladders (limb.powers), then each table
-is a fixed-base windowed multiply (msm/fixed_base.py) and one batched
-affine conversion per group. With a mesh, every rank computes the powers
+is a fixed-base windowed multiply (msm/fixed_base.py) and a batched affine
+conversion, a chunk of rows at a time within the step budget. With a mesh, every rank computes the powers
 and builds its slice of each table's rows; the slices are gathered, so
 every rank holds the whole tables (commits read arbitrary windows of rows).
 Each step is logged with its seconds under SONIC_TPU_LOG (utils/log.py).
@@ -28,7 +28,7 @@ from .curve.group import Affine, g1, g2
 from .device import resolve
 from .fields import limb
 from .fields.limb import FR
-from .msm.fixed_base import fixed_base_mul
+from .msm.fixed_base import chunk_rows, fixed_base_mul
 from .utils.log import get_logger, phase_timer
 
 
@@ -182,6 +182,17 @@ def _fence(log, t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _affine_rows(group, scalars: torch.Tensor) -> Affine:
+    """s_i * generator in affine form for standard-form scalars (N, L):
+    `fixed_base_mul` and one batched `to_affine` a chunk of rows at a time
+    (`fixed_base.chunk_rows`), so neither holds more than a chunk's
+    temporaries; affine rows do not depend on the chunking."""
+    step = chunk_rows(group)
+    parts = [group.to_affine(fixed_base_mul(group, scalars[i : i + step]))
+             for i in range(0, scalars.shape[0], step)]
+    return parts[0] if len(parts) == 1 else Affine(*(torch.cat(a) for a in zip(*parts)))
+
+
 def _tables(group, scalars: torch.Tensor, rows: int, mesh) -> Affine:
     """Two tables' standard-form scalars, rows one table after the other
     (2 rows, L) -> their affine points (2 rows,). With `mesh`, each rank
@@ -189,14 +200,14 @@ def _tables(group, scalars: torch.Tensor, rows: int, mesh) -> Affine:
     multiple of the world size and give infinity rows, cut off after the
     gather)."""
     if mesh is None:
-        return group.to_affine(fixed_base_mul(group, scalars))
+        return _affine_rows(group, scalars)
     from .parallel.mesh import all_gather_rows, shard_rows
 
     L = scalars.shape[-1]
     two = scalars.reshape(2, rows, L)
     mine = torch.cat([shard_rows(two[0], mesh), shard_rows(two[1], mesh)], 0)  # (2 per, L)
     per = mine.shape[0] // 2
-    aff = group.to_affine(fixed_base_mul(group, mine))
+    aff = _affine_rows(group, mine)
     coord = aff.x.shape[1:]
     k = aff.x[0].numel()
     flat = torch.cat([aff.x.reshape(2 * per, k), aff.y.reshape(2 * per, k),

@@ -1,9 +1,10 @@
 """PyTorch port, batch proving: the proof-batch builders of
 sonic_tpu_torch.constraints vs sonic_tpu.constraints (limb for limb), and
 protocol.prove_batch vs the port's single prove and the golden prover
-(proof bytes), at the shapes of tests/test_prove_batch.py. All comparisons
-are exact.
+(proof bytes), at the shapes of tests/test_prove_batch.py, whole and with
+the helper streamed over slices of the proofs. All comparisons are exact.
 """
+import collections
 import random
 
 import numpy as np
@@ -14,7 +15,7 @@ from sonic_tpu import constraints as jcons
 from sonic_tpu import golden_protocol as jgp
 from sonic_tpu import serial as jserial
 from sonic_tpu.fields.limb import FR as JFR
-from sonic_tpu_torch import breakdown, constraints, protocol, serial
+from sonic_tpu_torch import breakdown, budget, constraints, protocol, serial
 from sonic_tpu_torch import golden_protocol as gp
 from sonic_tpu_torch.circuit import random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
@@ -115,3 +116,32 @@ def test_prove_batch_raises_on_a_violating_assignment():
     das[1] = DeviceAssignment(bad.aL, bad.aR, FR.from_int([v + 1 for v in assignments[1].aO]))
     with pytest.raises(IndexError, match="g\\^alpha is not in the SRS"):
         protocol.prove_batch(srs, das, dcs, rnds)
+
+
+def test_streamed_prove_batch_matches_single_proofs_and_golden(monkeypatch):
+    """B = 2 proofs with the helper's unit at a whole step over one proof's
+    coefficients: the helper streams over 2 slices of one proof (counted
+    by protocol.helper_slicings) while the other steps stay whole, and
+    each proof equals the port's single prove and the golden prover byte
+    for byte. Smaller budgets slice the proofs as evenly as they allow."""
+    rng = random.Random(79)
+    host_srs, circuits, assignments, rnds = _setup(rng, 2)
+    srs = SRS.from_host(host_srs, device="cpu")
+    dcs = [DeviceCircuit.from_host(c, device="cpu") for c in circuits]
+    das = [DeviceAssignment.from_host(a, device="cpu") for a in assignments]
+    assert protocol._helper_slices(2, Q, N) == [(0, 2)]
+    one = Q * (3 * N + 1)  # coefficients of one proof's helper instances
+    monkeypatch.setattr(budget, "HELPER_BYTES", budget.STEP_BYTES // one)
+    assert protocol._helper_slices(2, Q, N) == [(0, 1), (1, 2)]
+    assert protocol._helper_slices(5, Q, N) == [(i, i + 1) for i in range(5)]
+    monkeypatch.setattr(budget, "HELPER_BYTES", budget.STEP_BYTES // (2 * one))
+    assert protocol._helper_slices(5, Q, N) == [(0, 1), (1, 3), (3, 5)]
+    assert protocol._helper_slices(4, Q, N) == [(0, 2), (2, 4)]
+    monkeypatch.setattr(budget, "HELPER_BYTES", budget.STEP_BYTES // one)
+    before = collections.Counter(protocol.helper_slicings)
+    batch = protocol.prove_batch(srs, das, dcs, rnds)
+    assert protocol.helper_slicings - before == {(2, 2): 1}
+    for b in range(2):
+        single, _ = protocol.prove(srs, das[b], dcs[b], rnds[b])
+        want, _ = jgp.prove(host_srs, assignments[b], circuits[b], jgp.Randomness(**vars(rnds[b])))
+        assert serial.proof_to_bytes(batch[b][0]) == serial.proof_to_bytes(single) == jserial.proof_to_bytes(want)

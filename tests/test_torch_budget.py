@@ -10,6 +10,7 @@ the JAX package, the golden prover and the port's uncut calls. Also here:
 All comparisons are exact; MSM results are compared in affine form (cut
 plans add in another order, so projective coordinates may differ).
 """
+import collections
 import random
 
 import jax.numpy as jnp
@@ -161,22 +162,25 @@ def _host_srs(d, x, alpha):
     )
 
 
-# one and a half q-slices of the s(X, y_j) build's products at n = 16 with
-# 4 instances (m ys, or B circuits of m ys each): one q a slice; every
-# batched MSM over 24 or more points and every batched division of the
-# tests' sizes then runs one instance a slice
-TINY_STEP = 3 * 4 * 16 * budget.PRODUCT_BYTES // 2
+# the circuits' size: d = 7 n = 56
+TINY_N = 8
+# one and a half q-slices of the s(X, y_j) build's products at n = 8 with
+# 2 instances (m ys, or B circuits of m ys each): one q a slice; every
+# batched MSM over 6 or more points, every batched division over 12 or
+# more coefficients and every helper slice of more than one proof then
+# runs one instance (one proof) a slice
+TINY_STEP = 3 * 2 * TINY_N * budget.PRODUCT_BYTES // 2
 
 
 def _tiny_budget_setup(monkeypatch, seed, B, q):
-    """B random circuits at n = 16 and q, their randomness, a host SRS
-    and its upload, the step budget at TINY_STEP, and the golden proofs'
-    bytes (the golden prover's multiplications through the JAX package's
-    native host MSM)."""
+    """B random circuits at n = TINY_N and q, their randomness, a host
+    SRS and its upload, the step budget at TINY_STEP, and the golden
+    proofs' bytes (the golden prover's multiplications through the JAX
+    package's native host MSM)."""
     assert jnative.get_lib() is not None
     monkeypatch.setattr(golden, "g1_mul", _native_g1_mul)
     rng = random.Random(seed)
-    n = 16
+    n = TINY_N
     pairs = [random_circuit(rng, n=n, q=q) for _ in range(B)]
     rnds = [gp.Randomness.generate(rng, q) for _ in range(B)]
     host = _host_srs(7 * n, rng.randrange(2, gp.P), rng.randrange(2, gp.P))
@@ -191,26 +195,32 @@ def _tiny_budget_setup(monkeypatch, seed, B, q):
 
 @pytest.mark.parametrize("batch", [False, True], ids=["prove", "prove_batch"])
 def test_prove_with_tiny_budgets_matches_golden(monkeypatch, batch):
-    """prove at n = 16, q = 4, and prove_batch of B = 2 circuits at q = 2,
-    with a tiny step budget: each batched MSM of the helper (M = 4) runs
-    one MSM a slice, as breakdown's table of slicings shows, a bucket-sums
-    call each; the batched divisions run in slices; the proofs are
-    byte-equal to the golden prover's."""
-    B, q = (2, 2) if batch else (1, 4)
+    """prove at n = 8, q = 2, and prove_batch of B = 2 circuits at q = 2,
+    with a tiny step budget: the batch's helper streams over 2 slices of
+    one proof (protocol.helper_slicings), so each batched MSM of the helper
+    has M = q, and every batched MSM of M = q (in the batch also zkP's, over
+    the B = 2 proofs) runs one MSM a slice, as breakdown's table of
+    slicings shows, a bucket-sums call each; the batched divisions run in
+    slices; the proofs are byte-equal to the golden prover's."""
+    B, q = (2, 2) if batch else (1, 2)
     srs, dcs, das, rnds, wants = _tiny_budget_setup(monkeypatch, 14 if batch else 13, B, q)
     calls: list = []
     _counting(monkeypatch, pippenger, "bucket_sums", calls)
     _counting(monkeypatch, laurent, "div_by_linear_batched", calls)  # its slices only
     phases = breakdown.PHASES + (breakdown.BATCH_PHASES if batch else [])
+    before = collections.Counter(protocol.helper_slicings)
     with breakdown.phase_timers(torch.device("cpu"), phases) as acc:
         if batch:
             proofs = [p for p, _ in protocol.prove_batch(srs, das, dcs, rnds)]
         else:
             proofs = [protocol.prove(srs, das[0], dcs[0], rnds[0])[0]]
     assert [serial.proof_to_bytes(p) for p in proofs] == wants
-    helper = [key for key in acc.slices if key[0] == B * q]
+    assert protocol.helper_slicings - before == ({(B, B): 1} if batch else {})
+    helper = [key for key in acc.slices if key[0] == q]
     assert helper and all(k == M for M, _, k in helper)
-    singles = 0 if batch else 7  # prove's MSMs of one instance: r, t, their openings, C, Qv
+    # MSMs of one instance: prove's r, t, their openings, C and Qv; each
+    # one-proof helper slice's C and Qv in the batch
+    singles = 2 * B if batch else 7
     assert calls.count("bucket_sums") == singles + sum(k * n for (_, _, k), n in acc.slices.items())
     assert calls.count("div_by_linear_batched") > 0
 

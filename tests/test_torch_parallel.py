@@ -73,6 +73,7 @@ MSM_NS = (3, 32, 33)  # 3 < world: a rank with an empty slice
 BATCH_M, BATCH_N = 5, 9
 NTT_N = 64  # R = C = 8: splits over 2 and 4 ranks
 SRS_D, SRS_X, SRS_ALPHA = 10, 23, 29  # tests/test_srs_sharded.py's
+G2_N = 5  # msm_sharded(g2, ...): over 4 ranks, slices of 2, 2, 1 and 0 points
 
 
 def _inputs():
@@ -93,12 +94,15 @@ def _inputs():
     bsc[1][3] = 0
     ntt_in = [rng.randrange(R_MOD) for _ in range(NTT_N)]
     mul_in = ([rng.randrange(R_MOD) for _ in range(40)], [rng.randrange(R_MOD) for _ in range(30)])
-    return msms, (bpts, bsc), ntt_in, mul_in
+    g2pts = [golden.g2_mul(golden.G2_GEN, rng.randrange(1, R_MOD)) for _ in range(G2_N)]
+    g2pts[1] = None
+    g2sc = [rng.randrange(R_MOD) for _ in range(G2_N)]
+    return msms, (bpts, bsc), ntt_in, mul_in, (g2pts, g2sc)
 
 
 def _world_checks(rank, world, store, outdir):
     mesh = init_rank(rank, world, store)
-    from sonic_tpu_torch.curve.group import g1
+    from sonic_tpu_torch.curve.group import g1, g2
     from sonic_tpu_torch.fields.limb import FR
     from sonic_tpu_torch.msm import pippenger
     from sonic_tpu_torch.parallel import distributed, mesh as pmesh, ntt_sharded
@@ -113,16 +117,19 @@ def _world_checks(rank, world, store, outdir):
                      two_d.mesh_dim_names, tuple(two_d.mesh.shape),
                      local.size(), local.mesh.tolist())
     # MSMs: one per n, a batched one, msm_windows + combine_windows
-    msms, (bpts, bsc), ntt_in, mul_in = _inputs()
+    msms, (bpts, bsc), ntt_in, mul_in, (g2pts, g2sc) = _inputs()
     got = []
-    for pts, sc in msms:
-        p = pmesh.msm_sharded(g1.from_host(pts, "cpu"), FR.from_int(sc, mont=False), mesh)
+    for i, (pts, sc) in enumerate(msms):
+        args = (g1.from_host(pts, "cpu"), FR.from_int(sc, mont=False), mesh)
+        p = pmesh.msm_sharded(g1, *args) if i == 0 else pmesh.msm_sharded(*args)  # both orders
         got.append(g1.to_host(g1.to_affine(p.map(lambda a: a.reshape(1, -1))))[0])
     P, S = g1.from_host(bpts, "cpu"), FR.from_int(bsc, mont=False)
     got.append(g1.to_host(g1.to_affine(pippenger.msm_batched(P, S, mesh=mesh))))
     part = pippenger.msm_windows(P, S, mesh=mesh)
     got.append(g1.to_host(g1.to_affine(pippenger.combine_windows([part])[0])))
     out["msm"] = got
+    p = pmesh.msm_sharded(g2, g2.from_host(g2pts, "cpu"), FR.from_int(g2sc, mont=False), mesh, 4)
+    out["msm_g2"] = g2.to_host(g2.to_affine(p.map(lambda a: a[None])))[0]
     out["totals"] = torch.stack(list(part.totals))  # the same projective values on every rank
     # NTTs
     a = FR.from_int(ntt_in)
@@ -166,7 +173,10 @@ def test_world_matches_single_device_jax(world, tmp_path):
     def limbs(a):
         return torch.from_numpy(np.asarray(a).astype(np.int64))
 
-    msms, (bpts, bsc), ntt_in, mul_in = _inputs()
+    msms, (bpts, bsc), ntt_in, mul_in, (g2pts, g2sc) = _inputs()
+    want_g2 = None
+    for p, k in zip(g2pts, g2sc):
+        want_g2 = golden.g2_add(want_g2, None if p is None else golden.g2_mul(p, k))
     want_msm = []
     for pts, sc in msms:
         want = golden.g1_msm(pts, sc)
@@ -185,6 +195,7 @@ def test_world_matches_single_device_jax(world, tmp_path):
         assert out["meshes"] == (("shard",), world, rank, ("dcn", "ici"), (world // 2, 2), 2,
                                  [rank // 2 * 2, rank // 2 * 2 + 1])
         assert out["msm"] == want_msm
+        assert out["msm_g2"] == want_g2
         assert torch.equal(out["totals"], ranks[0]["totals"])
         for key, want in want_ntt.items():
             assert torch.equal(out[key], want), key
