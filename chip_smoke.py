@@ -83,7 +83,9 @@ torch.cuda.synchronize():
               inside the path (the first kernel-2 launch of each (M, W, B,
               N) kept), verify True; the kept kernel-2 launches against
               bucket_sums_plain (the smallest and a helper slice always,
-              the rest while BIG_PLAIN_BUDGET_S lasts), then let go; one
+              the rest while BIG_PLAIN_BUDGET_S lasts, and every other one
+              on its last MSM row: against bucket_sums_plain on a plan of
+              that row alone, in affine form), then let go; one
               timed prove whose peak device memory must stay within
               BIG_PEAK_GIB, and the phase table of one more (peak memory
               per phase, slices of each batched MSM); pr_r, pr_t and
@@ -97,7 +99,8 @@ torch.cuda.synchronize():
               (within BIG_PEAK_GIB) and helper slices; the first kernel-2
               launch of each (M, W, B, N) timed as it ran and held against
               bucket_sums_plain as it ran (the first always, the rest
-              while BIG_BATCH_PLAIN_BUDGET_S lasts); proof 32 byte-equal
+              while BIG_BATCH_PLAIN_BUDGET_S lasts, every other one on its
+              last MSM row as in phase 10); proof 32 byte-equal
               to protocol.prove, all 64 verify True, a tampered one False;
  12. big SRS  SRS.new(h_mode="full") at phase 10's d = 458,772 (bench.py's
               _bench_srs at the big degree): its seconds, peak device
@@ -193,13 +196,25 @@ def srs_digest(srs) -> str:
     return h.hexdigest()
 
 
-def table_digest(srs, names=("g_x", "g_ax", "h_x", "h_ax")) -> str:
-    """sha256 of a device SRS's tables: x, y limbs and infinity flags."""
-    h = hashlib.sha256()
-    for name in names:
-        for a in getattr(srs, name):
-            h.update(a.cpu().numpy().tobytes())
-    return h.hexdigest()
+def row_err(pts, plan, out, src) -> int:
+    """Kernel 2's bucket sums `out` of `plan`, on its last MSM row, against
+    bucket_sums_plain on a plan of that row alone (its digits in `src`,
+    kept by `Path`), in affine form: the one-row plan cuts its chunks
+    elsewhere, so the projective sums may differ. Raises on a mismatch;
+    returns the max abs error of the affine coordinates (0)."""
+    import torch
+
+    from sonic_tpu_torch.curve.group import g1
+    from sonic_tpu_torch.msm import bucket_acc
+
+    digits, nb = src
+    rplan = bucket_acc.make_plan(pts.inf, digits.to(pts.inf.device, torch.int64), nb)
+    want = g1.to_affine(bucket_acc.bucket_sums_plain(pts, rplan).map(lambda a: a[0]))
+    got = g1.to_affine(out.map(lambda a: a[-1]))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"kernel 2 {plan.shape} over N={plan.npoints}: its last MSM row differs "
+                             f"from bucket_sums_plain on that row's own plan")
+    return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
 
 
 def plain_err(out, a, b, spec, limit: int = 1 << 20) -> int:
@@ -231,10 +246,13 @@ class Path:
     against bucket_sums_plain as it happens: the path's first launch
     always, a later one while its estimated plain time (its entries at the
     slowest rate seen so far) fits in what is left of `check_sums_s`
-    seconds; every first launch is timed with CUDA events as it runs
-    (`k2_new`). The checks' seconds add up in `Path.check_s`, which the
-    script's timers leave out, and `peak` is the path's peak device memory
-    without the checks' allocations."""
+    seconds, and any other on its last MSM row alone (`row_err`); every
+    first launch is timed with CUDA events as it runs (`k2_new`). With
+    `sums_by_shape` or `check_sums_s`, the digits of the last MSM row of
+    the first plan of each (M, W, B, N) are kept on the host (`row_src`).
+    The checks' seconds add up in `Path.check_s`, which the script's
+    timers leave out, and `peak` is the path's peak device memory without
+    the checks' allocations."""
 
     check_s = 0.0
 
@@ -243,7 +261,7 @@ class Path:
         self.name, self.uses, self.keep_sums, self.sums_by_shape = name, uses, keep_sums, sums_by_shape
         self.check_sums_s = check_sums_s
         self.sums, self.sum_shapes, self.shape_count, self.k1_err = [], set(), {}, []
-        self.k2_new, self.k2_err, self.peak = [], [], 0
+        self.k2_new, self.k2_err, self.peak, self.row_src = [], [], 0, {}
 
     def _checking(self):
         """Enter a check: the path's peak so far is kept, and the check's
@@ -268,23 +286,15 @@ class Path:
         """Hold a launch against bucket_sums_plain inline (see the class)."""
         import torch
 
-        from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc
 
         t0 = self._checking()
         rate = max((s_ / e_ for e_, s_ in self._rates), default=0.0)
         ms = events[0].elapsed_time(events[1]) if events else None
         row = {"shape": list(plan.shape), "npoints": plan.npoints, "entries": plan.entries, "ms": ms,
-               "plain_ms": None}
+               "plain_ms": None, "row_plain_ms": None}
         if not self.k2_new or rate * plan.entries <= self.check_sums_s - self._sums_wait:
-            # the plain sums' Fq products are kernel-1 launches on the card:
-            # they bypass the path's kernel-1 checks and leave its count as it was
-            counted, checking = mont_mul.launches, mont_mul.mont_mul
-            mont_mul.mont_mul = self._real[1]
-            try:
-                want = bucket_acc.bucket_sums_plain(pts, plan)
-            finally:
-                mont_mul.mont_mul, mont_mul.launches = checking, counted
+            want = self._plain(lambda: bucket_acc.bucket_sums_plain(pts, plan))
             if not all(torch.equal(g, w) for g, w in zip(out, want)):
                 raise AssertionError(f"{self.name}: kernel 2 {plan.shape} over N={plan.npoints} differs "
                                      f"from bucket_sums_plain")
@@ -293,8 +303,25 @@ class Path:
             row["plain_ms"] = 1e3 * took
             self._rates.append((max(plan.entries, 1), took))
             self._sums_wait += took
+        else:
+            key = (plan.shape, plan.npoints)
+            self.k2_err.append(self._plain(lambda: row_err(pts, plan, out, self.row_src[key])))
+            row["row_plain_ms"] = 1e3 * (time.perf_counter() - t0)
         self.k2_new.append(row)
         self._checked(t0)
+
+    def _plain(self, fn):
+        """fn(): the plain sums' Fq products are kernel-1 launches on the
+        card; they bypass the path's kernel-1 checks and leave its count as
+        it was."""
+        from sonic_tpu_torch.fields import mont_mul
+
+        counted, checking = mont_mul.launches, mont_mul.mont_mul
+        mont_mul.mont_mul = self._real[1]
+        try:
+            return fn()
+        finally:
+            mont_mul.mont_mul, mont_mul.launches = checking, counted
 
     def __enter__(self):
         import torch
@@ -302,8 +329,17 @@ class Path:
         from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc, pippenger
 
-        self._real = real_sums, real_mul = pippenger.bucket_sums, mont_mul.mont_mul
+        self._real = real_sums, real_mul, real_plan = pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan
         self._sums_wait, self._rates = 0.0, []
+
+        def plan_keep(inf, digits, nbuckets, chunks=None):
+            plan = real_plan(inf, digits, nbuckets, chunks)
+            key = (plan.shape, plan.npoints)
+            if key not in self.row_src:
+                t0 = self._checking()
+                self.row_src[key] = (digits.reshape((-1,) + digits.shape[-2:])[-1].to("cpu", torch.int8), nbuckets)
+                self._checked(t0)
+            return plan
 
         def sums_keep(pts, plan):
             key = (plan.shape, plan.npoints)
@@ -342,6 +378,8 @@ class Path:
             return out
 
         pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_check
+        if self.sums_by_shape or self.check_sums_s is not None:
+            pippenger.make_plan = plan_keep
         mont_mul.launches = bucket_acc.launches = 0
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -355,7 +393,7 @@ class Path:
         from sonic_tpu_torch.msm import bucket_acc, pippenger
 
         self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches}
-        pippenger.bucket_sums, mont_mul.mont_mul = self._real
+        pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan = self._real
         if torch.cuda.is_available():
             torch.cuda.synchronize()
             self.peak = max(self.peak, torch.cuda.max_memory_allocated())
@@ -375,6 +413,7 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
     from sonic_tpu_torch import breakdown, protocol, serial
     from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
     from sonic_tpu_torch.msm import bucket_acc
+    from sonic_tpu_torch.multichip import table_digest
     from sonic_tpu_torch.parallel import distributed, ntt_sharded
     from sonic_tpu_torch.srs import SRS
 
@@ -472,6 +511,7 @@ def main() -> int:
     from sonic_tpu_torch.fields.limb import FQ, FR
     from sonic_tpu_torch import srs as srs_module
     from sonic_tpu_torch.msm import bucket_acc, fixed_base, pippenger
+    from sonic_tpu_torch.multichip import table_digest
     from sonic_tpu_torch.poly import laurent
     from sonic_tpu_torch.srs import SRS
 
@@ -1070,6 +1110,7 @@ def main() -> int:
     # smallest and a full helper slice (the most points, then the most MSMs)
     # always, that slice timed with the largest single MSM
     sums = sorted(big_path.sums, key=lambda s_: s_[1].entries)
+    row_src = big_path.row_src
     del big_path
     slice_i = max((i for i, (_, p_) in enumerate(sums) if p_.shape[0] > 1),
                   key=lambda i: (sums[i][1].npoints, sums[i][1].shape[0]))
@@ -1094,7 +1135,18 @@ def main() -> int:
     log(f"phase 10 kernel 2: {len(checked)} of the {len(sums)} distinct (M, W, B, N) launches equal to "
         f"bucket_sums_plain (smallest first; the smallest and a helper slice always, the rest while the "
         f"{BIG_PLAIN_BUDGET_S:.0f} s budget lasted; {time.perf_counter() - t0:.1f} s)")
-    del sums, pts, plan
+    t0 = time.perf_counter()
+    rows_checked = [i for i in range(len(sums)) if i not in checked]
+    for i in rows_checked:
+        t1 = time.perf_counter()
+        pts, plan = sums[i]
+        k2_err.append(row_err(pts, plan, bucket_acc.bucket_sums(pts, plan), row_src[(plan.shape, plan.npoints)]))
+        log(f"  kernel 2 launch {plan.shape} (M, W, B) over N={plan.npoints}, E={plan.entries}: MSM row "
+            f"{plan.shape[0] - 1} equal, in affine form, to bucket_sums_plain on that row's own plan "
+            f"({time.perf_counter() - t1:.1f} s)")
+    log(f"phase 10 kernel 2: the other {len(rows_checked)} launches checked on their last MSM row "
+        f"({time.perf_counter() - t0:.1f} s): all {len(sums)} shapes held")
+    del sums, pts, plan, row_src
 
     # the timed prove's peak is its own: the kept launches are gone
     torch.cuda.empty_cache()
@@ -1177,14 +1229,16 @@ def main() -> int:
     for row in bb_path.k2_new:
         row["bound_ms"] = row["entries"] * IMAD_PER_MIXED_ADD / imad_per_ms
         big_batch_k2.append(row)
-        plain = "not checked" if row["plain_ms"] is None else f"{row['plain_ms']:.1f} ms, equal"
+        plain = (f"{row['plain_ms']:.1f} ms, equal" if row["plain_ms"] is not None else
+                 f"on MSM row {row['shape'][0] - 1} alone {row['row_plain_ms']:.1f} ms, equal in affine form")
         log(f"  kernel 2 {tuple(row['shape'])} (M, W, B) over N={row['npoints']}, E={row['entries']}: "
             f"{row['ms']:.3f} ms as it ran (bound {row['bound_ms']:.3f} ms, "
             f"{100 * row['bound_ms'] / row['ms']:.1f} %); bucket_sums_plain {plain}")
     checked = sum(r_["plain_ms"] is not None for r_ in big_batch_k2)
     log(f"phase 11 kernel 2: the first launch of {checked} of the {len(big_batch_k2)} distinct (M, W, B, N) "
         f"equal to bucket_sums_plain as it ran (the first always, the rest while the "
-        f"{BIG_BATCH_PLAIN_BUDGET_S:.0f} s budget lasted)")
+        f"{BIG_BATCH_PLAIN_BUDGET_S:.0f} s budget lasted), the other {len(big_batch_k2) - checked} on their "
+        f"last MSM row: all {len(big_batch_k2)} shapes held")
     idx = B // 2
     (single, _), t_single = timed(lambda: protocol.prove(srs, bdas[idx], bdcs[idx], brnds[idx]))
     if serial.proof_to_bytes(single) != serial.proof_to_bytes(bbatch[idx][0]):
@@ -1282,7 +1336,7 @@ def main() -> int:
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "
         f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f}); "
         + "; ".join(f"big {k} {v[0]} over N={v[1]}, E={v[2]}: {v[3]:.3f} ms (bound {v[5]:.3f}, plain "
-                    f"{'not checked' if v[4] is None else f'{v[4]:.3f}'})" for k, v in big_k2.items()))
+                    f"{'not timed; held on its last MSM row' if v[4] is None else f'{v[4]:.3f}'})" for k, v in big_k2.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps(kernels_line))

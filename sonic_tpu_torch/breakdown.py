@@ -106,11 +106,15 @@ def _sync(device: torch.device) -> None:
 
 class Timings(collections.defaultdict):
     """{label: [seconds, calls, kernel-1 launches, peak device bytes]};
-    `slices` counts the batched MSMs' calls by (M, N, slices of M), and
-    `helper` prove_batch's calls by (B, the helper's slices of the proofs)."""
+    `slices` counts the batched MSMs' calls by (M, N, slices of M),
+    `helper` prove_batch's calls by (B, the helper's slices of the proofs),
+    and `peak` is the most device memory allocated at any time inside the
+    block since the allocator's peak was last reset before it (0 on the
+    CPU)."""
 
     def __init__(self):
         super().__init__(lambda: [0.0, 0, 0, 0])
+        self.peak = 0
         self.slices: collections.Counter = collections.Counter()
         self.helper: collections.Counter = collections.Counter()
 
@@ -138,7 +142,9 @@ def phase_timers(device: torch.device, phases=PHASES):
         def timed(*args, **kwargs):
             _sync(device)
             if cuda:
-                lift(torch.cuda.max_memory_allocated(device))
+                now = torch.cuda.max_memory_allocated(device)
+                acc.peak = max(acc.peak, now)
+                lift(now)
                 torch.cuda.reset_peak_memory_stats(device)
             open_peaks.append(0)
             launches, t0 = mont_mul.launches, time.perf_counter()
@@ -152,6 +158,7 @@ def phase_timers(device: torch.device, phases=PHASES):
             if cuda:
                 peak = max(peak, torch.cuda.max_memory_allocated(device))
                 lift(peak)
+                acc.peak = max(acc.peak, peak)
             row[3] = max(row[3], peak)
             return out
 
@@ -164,6 +171,8 @@ def phase_timers(device: torch.device, phases=PHASES):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        if cuda:
+            acc.peak = max(acc.peak, torch.cuda.max_memory_allocated(device))
         acc.slices.update(pippenger.slicings - before)
         acc.helper.update(protocol.helper_slicings - helper_before)
 

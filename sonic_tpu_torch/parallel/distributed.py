@@ -39,9 +39,11 @@ def initialize(backend: str | None = None, init_method: str | None = None,
 
     Arguments default from torchrun's environment: WORLD_SIZE and RANK,
     and init_method "env://", which reads MASTER_ADDR and MASTER_PORT (and
-    joins torchrun's own store). On a machine with a card the rank's
-    device becomes LOCAL_RANK modulo the card count. backend: NCCL on
-    CUDA, gloo on the CPU unless given."""
+    joins torchrun's own store). backend: NCCL on CUDA, gloo on the CPU
+    unless given. On a machine with a card the rank's device becomes
+    LOCAL_RANK; NCCL takes one card a rank, so it refuses more ranks on
+    this node (LOCAL_WORLD_SIZE, else the world size) than it has cards,
+    while gloo ranks share them (LOCAL_RANK modulo the card count)."""
     if dist.is_initialized():
         return
     world_size = world_size if world_size is not None else _env_int("WORLD_SIZE")
@@ -49,10 +51,15 @@ def initialize(backend: str | None = None, init_method: str | None = None,
     if init_method is None and world_size in (None, 1):
         return  # single process: nothing to do
     cuda = torch.cuda.is_available()
+    backend = backend or ("nccl" if cuda else "gloo")
     if cuda:
-        torch.cuda.set_device((_env_int("LOCAL_RANK") or 0) % torch.cuda.device_count())
-    dist.init_process_group(backend or ("nccl" if cuda else "gloo"), init_method=init_method or "env://",
-                            world_size=world_size, rank=rank)
+        cards, local = torch.cuda.device_count(), _env_int("LOCAL_RANK") or 0
+        ranks_here = max(_env_int("LOCAL_WORLD_SIZE") or world_size or 1, local + 1)
+        if backend == "nccl" and ranks_here > cards:
+            raise RuntimeError(f"initialize: {ranks_here} NCCL ranks on a node with {cards} card(s); "
+                               "NCCL takes one card a rank")
+        torch.cuda.set_device(local % cards)
+    dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank)
 
 
 @contextlib.contextmanager

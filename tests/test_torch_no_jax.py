@@ -1,8 +1,9 @@
 """PyTorch port: it runs without jax, and its host copies stay copies.
 
-(a) A fresh interpreter imports sonic_tpu_torch, proves and verifies the
-    pinned example2 vector, runs the example CLI on a random circuit,
-    proves a batch of two, builds a full SRS and round-trips it through a
+(a) A fresh interpreter imports sonic_tpu_torch (its multichip entry
+    point too), proves and verifies the pinned example2 vector, runs the
+    example CLI on a random circuit, proves a batch of two, builds a full
+    SRS and round-trips it through a
     checkpoint, and proves with the Fiat-Shamir device prover; another
     imports parallel/ and utils/ too and proves in a 2-rank gloo world
     with a mesh (each rank's proof equal to the single-rank one), where it
@@ -30,7 +31,7 @@ from sonic_tpu_torch import fiat_shamir, golden_protocol as gp, protocol, serial
 from sonic_tpu_torch.circuit import example_circuit_2, random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
 from sonic_tpu_torch.srs import SRS
-from sonic_tpu_torch import example
+from sonic_tpu_torch import example, multichip
 
 vec = json.load(open("tests/vectors/pinned_v1.json"))["example2"]
 r = vec["rnd"]

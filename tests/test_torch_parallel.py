@@ -245,6 +245,32 @@ def test_initialize_passes_the_torchrun_environment(init_calls, monkeypatch):
     ]
 
 
+@pytest.mark.parametrize("backend, world, local, cards, device", [
+    ("nccl", 4, 2, 4, 2),  # a card a rank
+    ("nccl", 4, 0, 2, None),  # more ranks than cards: refused on every rank
+    ("nccl", 2, 1, 1, None),
+    ("gloo", 2, 1, 1, 0),  # gloo ranks share the card (chip_smoke.py phase 9)
+])
+def test_initialize_gives_nccl_a_card_a_rank(init_calls, monkeypatch, backend, world, local, cards, device):
+    from sonic_tpu_torch.parallel import distributed
+
+    devices = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", devices.append)
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    monkeypatch.setenv("RANK", str(local))
+    monkeypatch.setenv("LOCAL_RANK", str(local))
+    if device is None:
+        with pytest.raises(RuntimeError, match="NCCL takes one card a rank"):
+            distributed.initialize(backend=backend)
+        assert init_calls == [] and devices == []
+    else:
+        distributed.initialize(backend=backend)
+        assert devices == [device]
+        assert init_calls == [((backend,), {"init_method": "env://", "world_size": world, "rank": local})]
+
+
 def test_splittable_follows_the_four_step_split():
     from sonic_tpu_torch.parallel.ntt_sharded import splittable
 
