@@ -107,7 +107,17 @@ torch.cuda.synchronize():
               memory and fixed-base chunks; rows of all four tables
               (random ones, e = -d, 0, d, both sides of every chunk
               boundary) equal to golden.g1_mul/g2_mul on the host; a
-              save_srs / load_srs round trip, timed, all tables equal.
+              save_srs / load_srs round trip, timed, all tables equal;
+ 13. huge MSMs BASELINE config 4's MSMs (an n = 2^20 circuit): 2^20 G1
+              points by fixed_base_mul; the 2^20-point MSM timed whole and
+              under sync timers (digits, plan, scan, tail); MSMs over
+              t's commitment's N = 7n + 8 = 7,340,040 and the helper's
+              3n + 1 = 3,145,729 points (the 2^20 points tiled), cut along
+              N within the step budget (`pippenger.n_slicings`, 3 and 2
+              slices), each equal, affine, to the uncut 2^20-point MSM of
+              the scalars summed mod r on each point; the first kernel-2
+              launch of each kind of slice timed and held against
+              bucket_sums_plain; the peak device memory.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -115,7 +125,7 @@ additions (nonzero digits on finite points), 11 Fq products of 2 * 12^2
 word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
-Every path (phase 3's G2 MSM, phases 5-12) runs with the launch counters
+Every path (phase 3's G2 MSM, phases 5-13) runs with the launch counters
 set to 0 just before it and read just after, and fails if a kernel it uses
 was never launched; phase 9's launches are summed over its ranks. Inside
 every path (on every rank) the first kernel-1 launch of each operand
@@ -168,6 +178,7 @@ BIG_PLAIN_BUDGET_S = 60.0  # phase 10: time for kernel 2 against bucket_sums_pla
 BIG_BATCH_B, BIG_BATCH_Q = 64, 8  # phase 11, at phase 10's n
 BIG_BATCH_PLAIN_BUDGET_S = 45.0  # phase 11: time for kernel 2 against bucket_sums_plain
 BIG_SRS_ROWS_CHECKED = 24  # phase 12: random rows a table against golden
+HUGE_N = 1 << 20  # phase 13: BASELINE config 4's n
 ROW_PROBE = 1 << 18  # phase 12: rows of the fixed_base_mul whose bytes a row are measured
 
 
@@ -1314,6 +1325,79 @@ def main() -> int:
     log(f"phase 12 checkpoint: save_srs {t_fsave:.2f} s ({fsize / 1e6:.1f} MB), load_srs {t_fload:.2f} s, "
         f"all four tables equal; {time.perf_counter() - t12:.1f} s for the phase")
 
+    # -- phase 13: the MSMs of BASELINE config 4 at its own size (n = 2^20) ----------------------
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    hn = HUGE_N
+    huge_pts, t_hpts = timed(lambda: g1.to_affine(fixed_base.fixed_base_mul(g1, rand_canonical(FR, hn))))
+    sizes = {"t": 7 * hn + 8, "helper": 3 * hn + 1}  # t's commitment; the helper's MSMs over 3n + 1 points
+
+    def tiled(N):
+        """The 2^20 points repeated to N rows."""
+        idx = torch.arange(N, device=dev) % hn
+        return Affine(huge_pts.x[idx], huge_pts.y[idx], huge_pts.inf[idx])
+
+    def folded(sc):
+        """(N, 16) standard-form scalars -> (2^20, 16): the sum mod r of the
+        scalars that meet each of the 2^20 points in `tiled(N)`."""
+        acc = sc[:hn].clone()
+        for lo in range(hn, sc.shape[0], hn):
+            part = sc[lo : lo + hn]
+            acc[: part.shape[0]] = limb.add(acc[: part.shape[0]], part, FR)
+        return acc
+
+    huge_sc = {k: rand_canonical(FR, N) for k, N in sizes.items()}
+    msm_phases = [(pippenger, "_lay_out", "digits"), (pippenger, "make_plan", "plan"),
+                  (pippenger, "bucket_sums", "scan (kernel 2)"),
+                  (pippenger, "_bucket_weighted_sum", "tail: bucket weighted sum"),
+                  (pippenger, "combine_windows", "tail: window combine")]
+    cut_before = collections.Counter(pippenger.n_slicings)
+    huge_res = {}
+    with Path("huge MSMs", sums_by_shape=True) as huge_path:
+        whole_sc = folded(huge_sc["t"])
+        huge_res["whole"], t_whole = timed(lambda: g1.to_affine(pippenger.msm(huge_pts, whole_sc).map(lambda a: a[None])))
+        with breakdown.phase_timers(dev, msm_phases) as macc:
+            _, t_whole_split = timed(lambda: pippenger.msm(huge_pts, whole_sc))
+        for k, N in sizes.items():
+            pts_k = tiled(N)
+            huge_res[k], t_cut = timed(lambda: g1.to_affine(pippenger.msm(pts_k, huge_sc[k]).map(lambda a: a[None])))
+            huge_res[k + " s"] = t_cut
+            del pts_k
+        helper_ref = folded(huge_sc["helper"])
+        huge_res["helper ref"] = g1.to_affine(pippenger.msm(huge_pts, helper_ref).map(lambda a: a[None]))
+    paths["huge MSMs"] = huge_path.launches
+    cuts = pippenger.n_slicings - cut_before
+    for k, ref in (("t", "whole"), ("helper", "helper ref")):
+        if not all(torch.equal(g_, w_) for g_, w_ in zip(huge_res[k], huge_res[ref])):
+            raise AssertionError(f"phase 13: the {sizes[k]}-point MSM cut along N differs from the uncut "
+                                 f"2^20-point MSM of its per-point summed scalars")
+    split = ", ".join(f"{label} {macc[label][0]:.3f} s ({macc[label][1]} calls)" for _, _, label in msm_phases)
+    log(f"phase 13 huge MSMs (n = 2^20): {hn} G1 points by fixed_base_mul on the card in {t_hpts:.2f} s; "
+        f"the 2^20-point MSM whole {t_whole:.3f} s, under sync timers {t_whole_split:.3f} s: {split}")
+    log(f"phase 13: MSMs cut along N: " + "; ".join(f"M={M} over N={N}: {k_} slices, {c_} call(s)"
+                                                  for (M, N, k_), c_ in sorted(cuts.items()))
+        + f"; t's size N={sizes['t']} {huge_res['t s']:.3f} s, the helper's N={sizes['helper']} "
+        f"{huge_res['helper s']:.3f} s; each equal, affine, to the uncut 2^20-point MSM of its per-point "
+        f"summed scalars mod r; peak device memory {huge_path.peak / 2**30:.2f} GiB; kernel launches "
+        f"{huge_path.launches}")
+    if {N for (_, N, k_) in cuts if k_ > 1} != set(sizes.values()):
+        raise AssertionError(f"phase 13: the N-cut did not run on both sizes: {dict(cuts)}")
+    k1_checked(huge_path, "phase 13")
+    huge_k2 = {}
+    for pts, plan in huge_path.sums:  # the first launch of each (M, W, B, N)
+        kind = next((k for k, N in sizes.items()
+                     if plan.npoints in {b - a for a, b in pippenger._n_slices(N, plan.shape[1])}), None)
+        if kind is None or kind + " slice" in huge_k2:
+            continue
+        err, ms, plain_ms, bound = check_sums(pts, plan, f"phase 13 {kind} slice {plan.shape} (M, W, B) over "
+                                                         f"N={plan.npoints}")
+        k2_err.append(err)
+        huge_k2[kind + " slice"] = (plan.shape, plan.npoints, plan.entries, ms, plain_ms, bound)
+    if set(huge_k2) != {"t slice", "helper slice"}:
+        raise AssertionError(f"phase 13: kernel 2 was not held on both slices: {sorted(huge_k2)}")
+    del huge_path, huge_pts, huge_sc, huge_res, whole_sc, helper_ref, pts, plan
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s for the phase")
+
     def total(kernel):
         return sum(p[kernel] for p in paths.values())
 
@@ -1330,6 +1414,8 @@ def main() -> int:
          "bound_ms": k2_main[2], "bound_by": "operations", "library_ms": None,
          "big": {k: dict(zip(("shape", "npoints", "entries", "ms", "plain_ms", "bound_ms"), v))
                  for k, v in big_k2.items()},
+         "huge": {k: dict(zip(("shape", "npoints", "entries", "ms", "plain_ms", "bound_ms"), v))
+                  for k, v in huge_k2.items()},
          "big_batch": big_batch_k2},
     ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "

@@ -22,11 +22,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from . import budget
 from .circuit import ArithCircuit, Assignment
 from .device import resolve
+from .fields import constants as C
 from .fields import limb
 from .fields.limb import FR
 from .poly.laurent import Laurent
@@ -52,15 +54,40 @@ class DeviceCircuit:
 
     @classmethod
     def from_host(cls, circuit: ArithCircuit, device=None) -> "DeviceCircuit":
-        """`device=None` is the card."""
+        """`device=None` is the card. The weight matrices go up through
+        `_weights`, the same limbs as `FR.from_int`'s."""
         device = resolve(device)
         w = circuit.weights
         return cls(
-            wL=FR.from_int([list(r) for r in w.wL], device=device),
-            wR=FR.from_int([list(r) for r in w.wR], device=device),
-            wO=FR.from_int([list(r) for r in w.wO], device=device),
+            wL=_weights(w.wL, device),
+            wR=_weights(w.wR, device),
+            wO=_weights(w.wO, device),
             cs=FR.from_int(list(circuit.cs), device=device),
         )
+
+
+def _weights(rows, device) -> torch.Tensor:
+    """A (Q, n) weight matrix of Python ints -> (Q, n, L) Montgomery limbs,
+    equal to `FR.from_int`'s. A matrix of ints in [0, 2^63) (the random
+    circuits' 0/1 weights) goes up as one int64 array, split into
+    standard-form limbs and taken to Montgomery form (`limb.to_mont`,
+    kernel 1 on the card) a row at a time; any other goes through
+    `FR.from_int`, whose Python loop costs ~0.66 us a weight (201 M
+    weights at n = 2^20, q = 64)."""
+    try:
+        a = np.array(rows, dtype=np.int64)
+    except (OverflowError, ValueError, TypeError):
+        a = None
+    if a is None or a.ndim != 2 or bool((a < 0).any()):
+        return FR.from_int([list(r) for r in rows], device=device)
+    a = torch.from_numpy(a).to(device)
+    out = torch.empty(a.shape + (FR.nlimbs,), dtype=torch.int64, device=device)
+    shifts = torch.arange(0, 64, C.LIMB_BITS, device=device)
+    for q in range(a.shape[0]):
+        std = a.new_zeros((a.shape[1], FR.nlimbs))
+        std[:, : shifts.numel()] = (a[q, :, None] >> shifts) & C.LIMB_MASK
+        out[q] = limb.to_mont(std, FR)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +194,11 @@ s_at_y_batched = s_at_y_batch
 
 def s_at_u_batch(circuits: DeviceCircuit, us: torch.Tensor) -> torch.Tensor:
     """s(u, Y) coefficients at offset -n: us (*B, L) for a circuit (or a
-    stack) with batch axes B -> (*B, 2n+q+1, L)."""
+    stack) with batch axes B -> (*B, 2n+q+1, L). The Y^(n+q) coefficients
+    are formed as many q at a time as the step budget holds at
+    `budget.PRODUCT_BYTES` a (q, i) term (at least one q; all 64 at once
+    held ~34 GB at n = 2^20), each q's own sum over i whatever the
+    slicing."""
     n = circuits.n
 
     def rows(p):  # (k, *B, L) -> (*B, 1, k, L), to meet (*B, Q, n, L) weights
@@ -178,12 +209,18 @@ def s_at_u_batch(circuits: DeviceCircuit, us: torch.Tensor) -> torch.Tensor:
     upos = upows[1 : n + 1]
     uhi = upows[n + 1 : 2 * n + 1]  # u^(n+1) .. u^2n
     # Y^(n+q) coefficients: sum_i wL[q,i] u^-i + wR[q,i] u^i + wO[q,i] u^(i+n)
-    terms = limb.add(
-        limb.add(limb.mul(circuits.wL, rows(uneg), FR), limb.mul(circuits.wR, rows(upos), FR), FR),
-        limb.mul(circuits.wO, rows(uhi), FR),
-        FR,
-    )
-    cq = limb.sum_mod(terms, FR, axis=-2)  # (*B, q, L)
+    per = budget.per_step(budget.PRODUCT_BYTES * math.prod(circuits.wL.shape[:-3]) * n)
+    cq = []
+    for lo in range(0, max(circuits.q, 1), per):
+        w = [t[..., lo : lo + per, :, :] for t in (circuits.wL, circuits.wR, circuits.wO)]
+        terms = limb.add(
+            limb.add(limb.mul(w[0], rows(uneg), FR), limb.mul(w[1], rows(upos), FR), FR),
+            limb.mul(w[2], rows(uhi), FR),
+            FR,
+        )
+        cq.append(limb.sum_mod(terms, FR, axis=-2))  # (*B, k, L)
+        del terms
+    cq = cq[0] if len(cq) == 1 else torch.cat(cq, -2)  # (*B, q, L)
     neg_uhi = limb.neg(uhi, FR).movedim(0, -2)  # -u^(n+i), i = 1..n
     zero = cq.new_zeros(cq.shape[:-2] + (1, cq.shape[-1]))
     # ascending Y exponents: -n..-1 -> -u^(2n)..-u^(n+1); 0; 1..n; n+1..n+q

@@ -23,9 +23,16 @@ slot M N W (the reference cuts M the same way,
 `sonic_tpu/msm/pippenger.py:462-490`): one plan over the helper's M = 64
 MSMs at n = 2^16 would need ~49 GB. The slices' bucket sums are
 concatenated along M, so the bucket weighted sum and the window combine
-still run once, whatever the slice count; an MSM whose N W alone exceeds
-the budget runs whole. `slicings` counts the batched calls by (M, N,
-slices). `msm_windows` stops before the window
+still run once, whatever the slice count. An MSM whose N W slots alone
+exceed the budget is cut along N too, into contiguous slices of the
+points (`_n_slices`), each with its own digits, plan and bucket-sums
+launch; a slice of M adds its N slices' bucket sums in slice order
+before the one weighted sum (t's commitment at n = 2^20 is ~31 GB of
+digit slots over 7.34 M points). Sums in the group are exact in any
+grouping, so the points and projective sums may differ with the cut but
+not the affine results. `slicings` counts the batched calls by (M, N,
+slices of M), `n_slicings` the calls cut along N by (M, N, slices of
+N). `msm_windows` stops before the window
 combine, so a caller with many MSMs (the prover) finishes them all in one
 batched `combine_windows`. With a mesh, each rank takes a slice of the
 points (`msm_windows`), and the budget applies to that slice.
@@ -51,9 +58,10 @@ from .bucket_acc import bucket_sums, bucket_sums_plain, make_plan
 DEFAULT_C = 8  # the reference's default window size (bits); the fixed-base tables' c
 CUDA_C = 6
 CPU_SMALL_C = 4
-# (M, N, slices of M) -> calls of a batched MSM (M > 1); breakdown's phase
-# tables read it
+# (M, N, slices of M) -> calls of a batched MSM (M > 1), and (M, N, slices
+# of N) -> calls cut along N; breakdown's phase tables read them
 slicings: collections.Counter = collections.Counter()
+n_slicings: collections.Counter = collections.Counter()
 
 
 def _pick_c(n: int, device) -> int:
@@ -192,6 +200,14 @@ def _m_slices(M: int, N: int, W: int) -> list:
     return [(lo, min(M, lo + per)) for lo in range(0, M, per)]
 
 
+def _n_slices(N: int, W: int) -> list:
+    """[lo, hi) ranges of the points axis of one MSM, as even as the step
+    budget allows: one slice unless the MSM's N W digit slots alone
+    exceed it, at least one point a slice."""
+    k = max(1, min(N, -(-budget.SLOT_BYTES * N * W // budget.STEP_BYTES)))
+    return [(N * i // k, N * (i + 1) // k) for i in range(k)]
+
+
 def msm_windows(points: Affine, scalars_std: torch.Tensor, c: int | None = None,
                 chunks: int | None = None, mesh=None, group: GroupOps = g1) -> WindowTotals:
     """The MSMs of `msm` / `msm_batched` up to their window totals: a
@@ -228,15 +244,22 @@ def _windows(points: Affine, scalars_std: torch.Tensor, c, chunks, group: GroupO
     if c is None:
         c = _pick_c(N, sc.device)
     W = -(-L * C.LIMB_BITS // c) + 1  # windows with the top carry window
-    sums, cuts = [], _m_slices(M, N, W)
+    sums, cuts, spans = [], _m_slices(M, N, W), _n_slices(N, W)
     if M > 1:
         slicings[(M, N, len(cuts))] += 1
+    if len(spans) > 1:
+        n_slicings[(M, N, len(spans))] += 1
     for lo, hi in cuts:
-        digits, c, nb = _lay_out(sc[lo:hi], c)
-        plan = make_plan(points.inf, digits, nb, chunks)
-        del digits  # a slice's digits and plan go before the next slice's
-        sums.append(bucket_sums(points, plan) if group is g1 else bucket_sums_plain(points, plan, group))
-        del plan
+        part = None
+        for a, b in spans:
+            pts = points if len(spans) == 1 else Affine(points.x[a:b], points.y[a:b], points.inf[a:b])
+            digits, c, nb = _lay_out(sc[lo:hi, a:b], c)
+            plan = make_plan(pts.inf, digits, nb, chunks)
+            del digits  # a slice's digits and plan go before the next slice's
+            s = bucket_sums(pts, plan) if group is g1 else bucket_sums_plain(pts, plan, group)
+            del plan
+            part = s if part is None else group.add(part, s)
+        sums.append(part)
     sums = cat(sums) if len(sums) > 1 else sums[0]
     if scalars_std.dim() == 2:
         sums = sums.map(lambda a: a[0])

@@ -18,7 +18,10 @@ Rank 0 then makes the same call with `mesh=None` and compares:
          Random(6)) and at d = 7 n + 20 of the largest prove circuit
          (its trapdoor, as phase 10 of chip_smoke.py draws it); the four
          tables' `table_digest`. The last one is the SRS of the paths
-         below;
+         below; with --prove-srs verifier it is built in verifier mode
+         (h_mode="verifier", n_hints the proves' n: the G1 tables and
+         the few G2 rows pcV reads, as bench.py's big path and
+         `breakdown` prove), and its digest is the G1 tables';
   prove  prove on random_circuit(Random(seed), n, q) for each --gates,
          --q, --seeds; proof bytes (`serial.proof_to_bytes`), then rank 0's
          sharded proof verifies True and False once tampered;
@@ -31,13 +34,21 @@ Rank 0 then makes the same call with `mesh=None` and compares:
 
 Every rank's result is compared (its sha256 gathered to rank 0), and a
 broadcast verdict makes every rank fail together on a mismatch. Rank 0
-prints one JSON line a path and size: K, the sharded seconds (median and
-min), the single-card seconds of the same process, the collectives'
-seconds and calls a call, each rank's peak device memory
-(`max_memory_allocated`) and kernel-1 / kernel-2 launches a call, the
-four-step products a call (all_to_all_single calls / 3), and the cards'
-`nvidia-smi` name and power limit. The last line is
+prints one JSON line a path and size: K, its sharded seconds (median and
+min) and every rank's, the single-card seconds of the same process and
+that call's peak device memory, the collectives' seconds and calls a
+call, each rank's peak device memory (`max_memory_allocated`) and
+kernel-1 / kernel-2 launches a call, the four-step products a call
+(all_to_all_single calls / 3), and the cards' `nvidia-smi` name and
+power limit. The last line is
 {"ok": true, "n_devices": K, "backend": "nccl", ...}.
+
+BASELINE config 4 at its own size (an n = 2^20, q = 64 circuit, d =
+7,340,052), a rank a card:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=K \\
+        -m sonic_tpu_torch.multichip --srs-d --gates 1048576 --q 64 \\
+        --seeds 20 --ntt --batch 0 --reps 1 --prove-srs verifier
 
 No fallback: on CUDA the group is NCCL, one card a rank (`initialize`
 refuses a world larger than the card count), a size that does not
@@ -179,10 +190,14 @@ class Run:
         fails, line = [], None
         if self.rank == 0:
             _sync(self.dev)
+            if self.dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(self.dev)
             t0 = time.perf_counter()
             ref = single()
             _sync(self.dev)
             t_single = time.perf_counter() - t0
+            single_peak = (torch.cuda.max_memory_allocated(self.dev) / 2**30
+                           if self.dev.type == "cuda" else 0.0)
             want = digest(ref)
             del ref
             fails = [f"{name} {size}: rank {r}'s sharded result differs from the single card's"
@@ -191,7 +206,9 @@ class Run:
             fails += extra.pop("fails", [])
             s = rec["s"]
             line = {"path": name, **size, "K": self.K, "sharded_s": s, "median_s": statistics.median(s),
-                    "min_s": min(s), "single_s": t_single,
+                    "min_s": min(s),
+                    "ranks_median_min_s": [[statistics.median(x["s"]), min(x["s"])] for x in recs],
+                    "single_s": t_single, "single_peak_gib": single_peak,
                     "collectives": rec["collectives"],
                     "four_step_products": rec["collectives"].get(
                         "in comms: all_to_all_single (NTT)", [0, 0])[1] / 3,
@@ -224,11 +241,15 @@ def run_paths(run: Run, args) -> None:
     srng = random.Random(SRS_SEED)
     sx, salpha = srng.randrange(2, gp.P), srng.randrange(2, gp.P)
     srs = None
-    for d, x, alpha in [(d, sx, salpha) for d in args.srs_d] + [(7 * big_n + 20, big_x, big_alpha)]:
+    hints = sorted({n for n, _, _, _ in proves})
+    for d, x, alpha, mode in ([(d, sx, salpha, "full") for d in args.srs_d]
+                              + [(7 * big_n + 20, big_x, big_alpha, args.prove_srs)]):
         srs = None
-        srs = run.path("srs", {"d": d},
-                       lambda: SRS.new(d, x, alpha, h_mode="full", device=dev, mesh=mesh),
-                       lambda: SRS.new(d, x, alpha, h_mode="full", device=dev), table_digest)
+        kw = dict(h_mode=mode, device=dev) | ({"n_hints": hints} if mode == "verifier" else {})
+        tables = ("g_x", "g_ax") if mode == "verifier" else ("g_x", "g_ax", "h_x", "h_ax")
+        srs = run.path("srs", {"d": d, "h_mode": mode},
+                       lambda: SRS.new(d, x, alpha, mesh=mesh, **kw),
+                       lambda: SRS.new(d, x, alpha, **kw), lambda t: table_digest(t, tables))
 
     # 2. prove
     for n, q, seed, (circuit, assignment, _, _, rnd) in proves:
@@ -288,6 +309,8 @@ def main(argv=None) -> int:
     parser.add_argument("--batch-gates", type=int, default=1024)
     parser.add_argument("--batch-q", type=int, default=8)
     parser.add_argument("--reps", type=int, default=2, help="timed sharded calls after the warm-up")
+    parser.add_argument("--prove-srs", choices=("full", "verifier"), default="full",
+                        help="the mode of the SRS the proves and the batch run on")
     args = parser.parse_args(argv)
     if not len(args.gates) == len(args.q) == len(args.seeds):
         parser.error("--gates, --q and --seeds need one value per prove")

@@ -18,6 +18,7 @@ refuses two ranks on one GPU ("Duplicate GPU detected").
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 
 import torch
@@ -25,6 +26,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .mesh import make_mesh
+
+# how long a collective waits for the slowest rank before the group fails:
+# multichip's rank 0 runs the single-card call while the others wait in a
+# broadcast, a prove and a setup of minutes each at n = 2^20, past the
+# default 10 minutes
+TIMEOUT = datetime.timedelta(minutes=40)
 
 
 def _env_int(name: str):
@@ -43,7 +50,8 @@ def initialize(backend: str | None = None, init_method: str | None = None,
     unless given. On a machine with a card the rank's device becomes
     LOCAL_RANK; NCCL takes one card a rank, so it refuses more ranks on
     this node (LOCAL_WORLD_SIZE, else the world size) than it has cards,
-    while gloo ranks share them (LOCAL_RANK modulo the card count)."""
+    while gloo ranks share them (LOCAL_RANK modulo the card count). A
+    collective waits up to TIMEOUT for the slowest rank."""
     if dist.is_initialized():
         return
     world_size = world_size if world_size is not None else _env_int("WORLD_SIZE")
@@ -59,7 +67,8 @@ def initialize(backend: str | None = None, init_method: str | None = None,
             raise RuntimeError(f"initialize: {ranks_here} NCCL ranks on a node with {cards} card(s); "
                                "NCCL takes one card a rank")
         torch.cuda.set_device(local % cards)
-    dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank)
+    dist.init_process_group(backend, init_method=init_method or "env://", world_size=world_size, rank=rank,
+                            timeout=TIMEOUT)
 
 
 @contextlib.contextmanager

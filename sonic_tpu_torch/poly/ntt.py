@@ -4,15 +4,23 @@ Port of `sonic_tpu/poly/ntt.py`: the radix-2 transform (`_ntt_jit`,
 `ntt_batched`) and `poly_mul_ntt`. Fr - 1 = 2^32 * odd, so power-of-two
 sizes up to 2^32 work. Each butterfly stage is one batched Fr multiply
 (kernel 1 on CUDA) plus an add and a sub over all N/2 pairs. The
-four-step split (`_FOUR_STEP_MIN`) existed to keep XLA programs small and
-is left out.
+reference's four-step split (`_FOUR_STEP_MIN`) kept XLA programs small;
+here a product whose radix-2 transform would exceed `budget.STEP_BYTES`
+at `budget.COEFF_BYTES` a coefficient takes a four-step split instead
+(`_four_step`), run in batches of columns and then of rows, so that it
+holds its whole arrays and one batch's temporaries: t(X, y) at n = 2^20
+is a transform of 2^23, ~24 GiB in one radix-2 piece. Both give the
+same Montgomery integers (exact arithmetic, canonical form).
 
 Coefficients are (N, ..., L): trailing batch axes ride along.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .. import budget
 from ..fields import constants as C
 from ..fields import limb
 from ..fields.limb import FR
@@ -86,9 +94,55 @@ def ntt(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return out
 
 
+def _twiddle_block(n: int, R: int, lo: int, hi: int, inverse: bool, device) -> torch.Tensor:
+    """(R, hi - lo, L): w_N^(k1 n2) (w_N^-1 for the inverse) for k1 < R,
+    lo <= n2 < hi, by power ladders: w_N^n2 for the columns, then their
+    powers down the rows."""
+    w = root_of_unity(n.bit_length() - 1)
+    if inverse:
+        w = pow(w, -1, C.R_MOD)
+    col = limb.mul(limb.powers(FR.from_int(w, device=device), FR, hi - lo),
+                   FR.from_int(pow(w, lo, C.R_MOD), device=device), FR)
+    return limb.powers(col, FR, R)
+
+
+def _four_step(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """In-order NTT along axis 0 of (N, ..., L), N = R C a power of two,
+    without the inverse's 1/N scaling, by the four-step split: x[C n1 +
+    n2] at [n1, n2] of an (R, C) view; length-R transforms down the
+    columns, each [k1, n2] times w_N^(k1 n2); length-C transforms along the
+    rows, X[k1 + R k2] at [k2, k1] of a (C, R) view, which is the output in
+    order. Columns, then rows, go in batches whose transforms take half
+    the step at `budget.COEFF_BYTES` a coefficient; the other half holds
+    the whole arrays (the input, the twiddled columns, the output)."""
+    n, rest = x.shape[0], x.shape[1:]
+    R = 1 << ((n.bit_length() - 1) // 2)
+    Cc = n // R
+    unit = budget.COEFF_BYTES * math.prod(rest[:-1])  # a coefficient of every trailing instance
+    ones = (1,) * (len(rest) - 1)
+    view = x.reshape((R, Cc) + rest)
+    mid = torch.empty_like(view)  # [k1, n2]
+    per = max(1, budget.STEP_BYTES // 2 // (unit * R))
+    for lo in range(0, Cc, per):
+        hi = min(Cc, lo + per)
+        tw = _twiddle_block(n, R, lo, hi, inverse, x.device)
+        mid[:, lo:hi] = limb.mul(ntt_batched(view[:, lo:hi], inverse),
+                                 tw.reshape((R, hi - lo) + ones + (C.FR_LIMBS,)), FR)
+        del tw
+    del view
+    out = x.new_empty((Cc, R) + rest)  # [k2, k1]
+    per = max(1, budget.STEP_BYTES // 2 // (unit * Cc))
+    for lo in range(0, R, per):
+        hi = min(R, lo + per)
+        out[:, lo:hi] = ntt_batched(mid[lo:hi].transpose(0, 1), inverse)
+    return out.reshape((n,) + rest)
+
+
 def poly_mul_ntt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full product of coefficient arrays (Da, ..., L) x (Db, ..., L) ->
-    (Da + Db - 1, ..., L)."""
+    (Da + Db - 1, ..., L): radix-2 transforms, or four-step ones when the
+    transform's length N is more than the step budget takes at
+    `budget.COEFF_BYTES` a coefficient."""
     out_len = a.shape[0] + b.shape[0] - 1
     n = 1
     while n < out_len:
@@ -97,5 +151,11 @@ def poly_mul_ntt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     def padded(x):
         return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])], 0)
 
-    fc = limb.mul(ntt(padded(a)), ntt(padded(b)), FR)
-    return ntt(fc, inverse=True)[:out_len]
+    if budget.COEFF_BYTES * n <= budget.STEP_BYTES:
+        fc = limb.mul(ntt(padded(a)), ntt(padded(b)), FR)
+        return ntt(fc, inverse=True)[:out_len]
+    fa = _four_step(padded(a))
+    fc = limb.mul(fa, _four_step(padded(b)), FR)
+    del fa
+    out = _four_step(fc, inverse=True)[:out_len]
+    return limb.mul(out, FR.from_int(pow(n, -1, C.R_MOD), device=out.device), FR)

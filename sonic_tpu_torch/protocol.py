@@ -88,17 +88,22 @@ def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, 
     s_y = s_at_y(circuit, y_m)
     k_y = k_at_y(circuit, n, y_m)
     t_y = laurent.mul(r1, laurent.add(r_y, s_y), mesh)
+    del r_y
     const_idx = -t_y.offset
     t_coeffs = t_y.coeffs.clone()
     t_coeffs[const_idx] = limb.sub(t_coeffs[const_idx], k_y, FR)
     t_y = Laurent(t_y.offset, t_coeffs)
-    t_const_m = t_coeffs[const_idx]
+    t_const_m = t_coeffs[const_idx].clone()
+    del t_coeffs
     commit_t = commit_poly(srs, srs.d, t_y, check_hole=False, mesh=mesh)
-    # zkP_3
+    # zkP_3; r', t and s(X, y) go before the helper
     a_m, wa = open_poly(srs, z_m, r1, mesh)
     b_m, wb = open_poly(srs, limb.mul(y_m, z_m, FR), r1, mesh)
+    del r1
     _, wt = open_poly(srs, z_m, t_y, mesh)
+    del t_y
     szy_m = evaluate(s_y, z_m)
+    del s_y
     # helper (with m = 0 the S_j, W_j, W'_j and Q_j blocks are empty)
     if m == 0:
         su_y = s_at_u_of_y(circuit, u_m)

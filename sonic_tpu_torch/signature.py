@@ -6,12 +6,18 @@ hsc_sj_device + hsc_cu_device, hsc_assemble, hsc_checks, hsc_verify).
 Reference: src/Sonic/Signature.hs.
 The m (y_j, z_j) openings are independent and shape-identical
 (Signature.hs:40-57), so the helper runs as one batched s(X, y_j) build,
-one batched commit and three batched opening MSMs.
+one batched commit and three batched opening MSMs, over slices of the m
+instances within the step budget (`_instance_slices`; one slice at
+n <= 2^16, 16 slices of 4 at n = 2^20, q = 64, where the 64 s(X, y_j)
+alone would take 25.8 GB).
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from . import budget
 from . import golden_protocol as gp
 from .commitment import (
     commit_poly,
@@ -22,9 +28,30 @@ from .commitment import (
     pcv_batch,
 )
 from .constraints import DeviceCircuit, s_at_u_of_y, s_at_y, s_at_y_batched
+from .curve.group import cat
 from .fields.limb import FR
+from .msm.pippenger import WindowTotals
 from .poly.laurent import evaluate
 from .srs import SRS
+
+# (m, n, slices of the m instances) -> calls of hsc_prove_device;
+# breakdown's phase tables read it
+slicings: collections.Counter = collections.Counter()
+
+
+def _instance_slices(m: int, n: int) -> list:
+    """[lo, hi) ranges of the helper's m instances, as even as the step
+    budget allows: an instance holds 3n + 1 coefficients at
+    `budget.INSTANCE_BYTES` a coefficient; at least one a slice."""
+    k = -(-m // budget.per_step(budget.INSTANCE_BYTES * (3 * n + 1)))
+    return [(m * i // k, m * (i + 1) // k) for i in range(k)]
+
+
+def _cat_windows(parts: list) -> WindowTotals:
+    """Slices of one kind of batched MSM, in order -> one WindowTotals."""
+    if len(parts) == 1:
+        return parts[0]
+    return WindowTotals(cat([p.totals for p in parts]), parts[0].c, parts[0].group)
 
 
 def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m, mesh=None):
@@ -33,12 +60,31 @@ def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m, mesh=No
     [MSMs before their window combine, pippenger.WindowTotals], fzs, s2
     [(m, L) Montgomery evaluations]).
 
+    s(u, Y) is built, committed and opened at v once; then each slice of
+    the instances (`_instance_slices`) builds its s(X, y_j), commits and
+    opens them and opens s(u, Y) at its y_j, keeps only its MSMs' window
+    totals and its evaluations, and frees the rest before the next slice.
+    The slices' totals are concatenated in order, so the window combine
+    sees the uncut layout.
+
     check_hole=False on the commits: s(X, y)'s X^0 coefficient and s(u,
     Y)'s Y^0 coefficient are zero by construction (Constraints.hs:34-53),
     so the reference's g^alpha panic cannot trigger here. With `mesh`,
     every MSM shards its points over the ranks."""
-    s_coeffs, cms, fzs, ws = hsc_sj_device(srs, circuit, ys, zs, mesh)
-    c, w2, s2, qs, qv = hsc_cu_device(srs, circuit, s_coeffs, u_m, ys, v_m, mesh=mesh)
+    n, m = circuit.n, ys.shape[0]
+    su_y = s_at_u_of_y(circuit, u_m)
+    c = commit_poly(srs, srs.d, su_y, check_hole=False, mesh=mesh)
+    _, qv = open_poly(srs, v_m, su_y, mesh)
+    cut = _instance_slices(m, n)
+    slicings[(m, n, len(cut))] += 1
+    parts = []
+    for lo, hi in cut:
+        s_coeffs, cms, fzs, ws = hsc_sj_device(srs, circuit, ys[lo:hi], zs[lo:hi], mesh)
+        w2, s2, qs = _hsc_u_openings(srs, n, s_coeffs, su_y, u_m, ys[lo:hi], mesh)
+        del s_coeffs
+        parts.append((cms, ws, w2, qs, fzs, s2))
+    cms, ws, w2, qs = (_cat_windows([p[k] for p in parts]) for k in range(4))
+    fzs, s2 = (torch.cat([p[k] for p in parts]) for k in (4, 5))
     return cms, ws, w2, qs, c, qv, fzs, s2
 
 
@@ -58,17 +104,23 @@ def hsc_cu_device(srs: SRS, circuit: DeviceCircuit, s_coeffs, u_m, ys, v_m,
     open the s(X, y_j) batch at u, open s(u, Y) at each y_j and at v.
     su_y / c may be passed in when already computed (the Fiat-Shamir
     prover must commit C and squeeze v before this block can run)."""
-    n = circuit.n
-    m = ys.shape[0]
     if su_y is None:
         su_y = s_at_u_of_y(circuit, u_m)
     if c is None:
         c = commit_poly(srs, srs.d, su_y, check_hole=False, mesh=mesh)
+    w2, s2, qs = _hsc_u_openings(srs, circuit.n, s_coeffs, su_y, u_m, ys, mesh)
+    _, qv = open_poly(srs, v_m, su_y, mesh)
+    return c, w2, s2, qs, qv
+
+
+def _hsc_u_openings(srs: SRS, n: int, s_coeffs, su_y, u_m, ys, mesh):
+    """The s(X, y_j) batch (offset -n) opened at u, and s(u, Y) opened at
+    each y_j: (w2, s2, qs)."""
+    m = ys.shape[0]
     _, w2 = open_poly_batched(srs, u_m.expand(ys.shape), -n, s_coeffs, mesh)
     su_b = su_y.coeffs.unsqueeze(0).expand((m,) + su_y.coeffs.shape)
     s2, qs = open_poly_batched(srs, ys, su_y.offset, su_b, mesh)
-    _, qv = open_poly(srs, v_m, su_y, mesh)
-    return c, w2, s2, qs, qv
+    return w2, s2, qs
 
 
 def hsc_prove(srs: SRS, circuit: DeviceCircuit, yzs_m, u_m, v_m, mesh=None) -> gp.HscProof:

@@ -29,7 +29,7 @@ from sonic_tpu.fields.limb import FQ as JFQ
 from sonic_tpu.fields.limb import FR as JFR
 from sonic_tpu.msm import pippenger as jpp
 from sonic_tpu.poly import laurent as jlaurent
-from sonic_tpu_torch import breakdown, budget, constraints, protocol, serial
+from sonic_tpu_torch import breakdown, budget, constraints, protocol, serial, signature
 from sonic_tpu_torch import golden_protocol as gp
 from sonic_tpu_torch.circuit import random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
@@ -87,9 +87,11 @@ def test_sliced_msm_batched_matches_jax_and_golden(monkeypatch):
     assert [calls.count(k) for k in ("make_plan", "bucket_sums", "_bucket_weighted_sum",
                                      "_window_combine")] == [3, 3, 1, 1]
     assert g1.to_host(g1.to_affine(got)) == want
-    # one MSM whose N W alone exceeds the budget runs whole
+    # one MSM whose N W alone exceeds the budget runs alone, cut along N
+    # into slices of one point at the least
     monkeypatch.setattr(budget, "STEP_BYTES", 1)
     assert pippenger._m_slices(M, N, W) == [(i, i + 1) for i in range(M)]
+    assert pippenger._n_slices(N, W) == [(i, i + 1) for i in range(N)]
     assert g1.to_host(g1.to_affine(pippenger.msm(points, to_torch(js[1]), c))) == want[1:2]
 
 
@@ -122,6 +124,33 @@ def test_sliced_s_at_y_batch_matches_jax(monkeypatch):
     for b in range(2):
         jgot = jcons.s_at_y_batched(jcs[b], JFR.from_int(ys[b]))
         assert np.array_equal(np.asarray(jgot).astype(np.int64), got[b].numpy())
+
+
+def test_sliced_s_at_u_batch_matches_jax(monkeypatch):
+    """s(u, Y) at n = 4, q = 5 with its Y^(n+q) coefficients formed 2 q at
+    a time (slices of 2, 2 and 1): the same Montgomery integers as the
+    port's uncut build and sonic_tpu's s_at_u_of_y, and over two stacked
+    circuits, one u each, as sonic_tpu's s_at_u_batch."""
+    rng = random.Random(17)
+    n, q = 4, 5
+    circuits = [random_circuit(rng, n=n, q=q)[0] for _ in range(2)]
+    us = [rng.randrange(1, R_MOD) for _ in range(2)]
+    jcs = [jcons.DeviceCircuit.from_host(c) for c in circuits]
+    tcs = [DeviceCircuit.from_host(c, device="cpu") for c in circuits]
+    tst = constraints.stack_circuits(tcs)
+    whole = constraints.s_at_u_batch(tst, FR.from_int(us))
+    monkeypatch.setattr(budget, "STEP_BYTES", 2 * 2 * n * budget.PRODUCT_BYTES)
+    calls: list = []
+    _counting(monkeypatch, constraints.limb, "sum_mod", calls)
+    got = constraints.s_at_u_batch(tst, FR.from_int(us))
+    assert calls.count("sum_mod") == 3  # q slices of 2, 2 and 1
+    assert torch.equal(got, whole)
+    jgot = jcons.s_at_u_batch(jcons.stack_circuits(jcs), JFR.from_int(us))
+    assert np.array_equal(np.asarray(jgot).astype(np.int64), got.numpy())
+    one = constraints.s_at_u_of_y(tcs[1], FR.from_int(us[1]))
+    jone = jcons.s_at_u_of_y(jcs[1], JFR.from_int(us[1]))
+    assert one.offset == jone.offset == -n
+    assert np.array_equal(np.asarray(jone.coeffs).astype(np.int64), one.coeffs.numpy())
 
 
 def test_sliced_div_by_linear_batched_matches_jax(monkeypatch):
@@ -167,8 +196,9 @@ TINY_N = 8
 # one and a half q-slices of the s(X, y_j) build's products at n = 8 with
 # 2 instances (m ys, or B circuits of m ys each): one q a slice; every
 # batched MSM over 6 or more points, every batched division over 12 or
-# more coefficients and every helper slice of more than one proof then
-# runs one instance (one proof) a slice
+# more coefficients and every helper slice of more than one proof or
+# instance then runs one instance (one proof) a slice, and every MSM over
+# 6 or more points is cut along N
 TINY_STEP = 3 * 2 * TINY_N * budget.PRODUCT_BYTES // 2
 
 
@@ -199,30 +229,45 @@ def test_prove_with_tiny_budgets_matches_golden(monkeypatch, batch):
     with a tiny step budget: the batch's helper streams over 2 slices of
     one proof (protocol.helper_slicings), so each batched MSM of the helper
     has M = q, and every batched MSM of M = q (in the batch also zkP's, over
-    the B = 2 proofs) runs one MSM a slice, as breakdown's table of
-    slicings shows, a bucket-sums call each; the batched divisions run in
-    slices; the proofs are byte-equal to the golden prover's."""
+    the B = 2 proofs) runs one MSM a slice; prove's helper runs one of its
+    q instances a slice (signature.slicings); every MSM over 6 or more
+    points is cut along N (pippenger.n_slicings), as breakdown's table of
+    slicings shows, with a bucket-sums call for each slice of M and of N;
+    the batch's batched divisions run in slices; the proofs are byte-equal
+    to the golden prover's."""
     B, q = (2, 2) if batch else (1, 2)
     srs, dcs, das, rnds, wants = _tiny_budget_setup(monkeypatch, 14 if batch else 13, B, q)
     calls: list = []
     _counting(monkeypatch, pippenger, "bucket_sums", calls)
     _counting(monkeypatch, laurent, "div_by_linear_batched", calls)  # its slices only
+    shapes: list = []  # (M, N) of every MSM batch
+    real_windows = pippenger._windows
+
+    def windows(points, sc, *args):
+        shapes.append((sc.shape[0] if sc.dim() == 3 else 1, sc.shape[-2]))
+        return real_windows(points, sc, *args)
+
+    monkeypatch.setattr(pippenger, "_windows", windows)
     phases = breakdown.PHASES + (breakdown.BATCH_PHASES if batch else [])
-    before = collections.Counter(protocol.helper_slicings)
+    before = collections.Counter(protocol.helper_slicings), collections.Counter(signature.slicings)
     with breakdown.phase_timers(torch.device("cpu"), phases) as acc:
         if batch:
             proofs = [p for p, _ in protocol.prove_batch(srs, das, dcs, rnds)]
         else:
             proofs = [protocol.prove(srs, das[0], dcs[0], rnds[0])[0]]
     assert [serial.proof_to_bytes(p) for p in proofs] == wants
-    assert protocol.helper_slicings - before == ({(B, B): 1} if batch else {})
+    assert protocol.helper_slicings - before[0] == ({(B, B): 1} if batch else {})
+    assert signature.slicings - before[1] == ({} if batch else {(q, TINY_N, q): 1})
     helper = [key for key in acc.slices if key[0] == q]
-    assert helper and all(k == M for M, _, k in helper)
-    # MSMs of one instance: prove's r, t, their openings, C and Qv; each
-    # one-proof helper slice's C and Qv in the batch
-    singles = 2 * B if batch else 7
-    assert calls.count("bucket_sums") == singles + sum(k * n for (_, _, k), n in acc.slices.items())
-    assert calls.count("div_by_linear_batched") > 0
+    assert all(k == M for M, _, k in acc.slices)
+    assert bool(helper) == batch  # prove's helper slices have one instance
+    assert acc.nslices and all(N >= 6 and k > 1 for _, N, k in acc.nslices)
+    launches = 0
+    for M, N in shapes:
+        W = -(-256 // pippenger._pick_c(N, "cpu")) + 1
+        launches += len(pippenger._m_slices(M, N, W)) * len(pippenger._n_slices(N, W))
+    assert calls.count("bucket_sums") == launches > len(shapes)
+    assert (calls.count("div_by_linear_batched") > 0) == batch  # prove's have one instance
 
 
 def test_msm_g2_matches_golden():

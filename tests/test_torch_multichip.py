@@ -3,10 +3,12 @@
 sonic_tpu_torch.multichip, sonic_tpu_torch.example and
 sonic_tpu_torch.breakdown, two gloo ranks on the CPU.
 
-multichip runs all its paths at a tiny size: the prove at n=8, q=2 under
-SONIC_TPU_NTT_THRESHOLD=512, where the t(X, y) product takes the four-step
-sharded NTT (as the JAX package's multichip dry run, `_dryrun_impl`,
-does), on the d = 7n + 20 full SRS of its own path. It must exit 0, report
+multichip runs all its paths at a tiny size: a full SRS at d = 12, the
+prove at n=8, q=2 under SONIC_TPU_NTT_THRESHOLD=512, where the t(X, y)
+product takes the four-step sharded NTT (as the JAX package's multichip
+dry run, `_dryrun_impl`, does), on the d = 7n + 20 SRS of its own path,
+built in verifier mode (`--prove-srs verifier`, as BASELINE config 4's
+run at n = 2^20 proves). It must exit 0, report
 every path equal on both ranks to rank 0's single-rank call, and its proof
 digest must equal that of `sonic_tpu.golden_protocol.prove` on the same
 inputs, computed here while the ranks run. example and breakdown must
@@ -29,8 +31,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, Q, SEED = 8, 2, 77
 
 ARGS = {
-    "multichip": ["--srs-d", "--gates", str(N), "--q", str(Q), "--seeds", str(SEED), "--ntt", "6",
-                  "--batch", "2", "--batch-gates", "1", "--batch-q", "1", "--reps", "0"],
+    "multichip": ["--srs-d", "12", "--gates", str(N), "--q", str(Q), "--seeds", str(SEED), "--ntt", "6",
+                  "--batch", "2", "--batch-gates", "1", "--batch-q", "1", "--reps", "0",
+                  "--prove-srs", "verifier"],
     "example": ["--gates", str(N), "--q", str(Q), "--seed", "3"],
     "breakdown": ["--gates", str(N), "--q", str(Q), "--reps", "1"],
 }
@@ -77,11 +80,13 @@ def test_launcher_runs_the_port_on_two_ranks(module):
         lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
         assert lines[-1]["ok"] is True and lines[-1]["n_devices"] == 2 and lines[-1]["backend"] == "gloo"
         paths = lines[:-1]
-        assert [p["path"] for p in paths] == ["srs", "prove", "ntt", "batch"]
+        assert [p["path"] for p in paths] == ["srs", "srs", "prove", "ntt", "batch"]
         assert all(p["equal"] is True and p["K"] == 2 for p in paths)
-        prove = paths[1]
+        assert [(p["d"], p["h_mode"]) for p in paths[:2]] == [(12, "full"), (7 * N + 20, "verifier")]
+        assert all(len(p["ranks_median_min_s"]) == 2 for p in paths)
+        prove = paths[2]
         assert (prove["n"], prove["q"], prove["d"]) == (N, Q, 7 * N + 20)
         assert prove["digest"] == want
         assert prove["verify"] is True and prove["tampered_verify"] is False
         # the t product went through the four-step sharded NTT, as did the ntt path's
-        assert prove["four_step_products"] == 1 and paths[2]["four_step_products"] == 1
+        assert prove["four_step_products"] == 1 and paths[3]["four_step_products"] == 1

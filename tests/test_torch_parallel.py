@@ -239,9 +239,12 @@ def test_initialize_passes_the_torchrun_environment(init_calls, monkeypatch):
     monkeypatch.setenv("RANK", "2")
     distributed.initialize()
     distributed.initialize(backend="nccl", init_method="file:///tmp/x", world_size=2, rank=1)
+    # every group gets the module's timeout, past NCCL's 10-minute default
+    t = distributed.TIMEOUT
+    assert t.total_seconds() > 600
     assert init_calls == [
-        (("gloo",), {"init_method": "env://", "world_size": 4, "rank": 2}),
-        (("nccl",), {"init_method": "file:///tmp/x", "world_size": 2, "rank": 1}),
+        (("gloo",), {"init_method": "env://", "world_size": 4, "rank": 2, "timeout": t}),
+        (("nccl",), {"init_method": "file:///tmp/x", "world_size": 2, "rank": 1, "timeout": t}),
     ]
 
 
@@ -268,7 +271,8 @@ def test_initialize_gives_nccl_a_card_a_rank(init_calls, monkeypatch, backend, w
     else:
         distributed.initialize(backend=backend)
         assert devices == [device]
-        assert init_calls == [((backend,), {"init_method": "env://", "world_size": world, "rank": local})]
+        assert init_calls == [((backend,), {"init_method": "env://", "world_size": world, "rank": local,
+                                            "timeout": distributed.TIMEOUT})]
 
 
 def test_splittable_follows_the_four_step_split():
