@@ -32,6 +32,7 @@ from .fields import constants as C
 from .fields import limb
 from .fields.limb import FR
 from .poly.laurent import Laurent
+from .utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +112,7 @@ class DeviceAssignment:
         )
 
 
+@span("sonic.poly.build")
 def r_x1_batch(assignments: DeviceAssignment, cns: torch.Tensor) -> torch.Tensor:
     """Blinded r'(X, 1) coefficients at offset -(2n+4): assignments
     (..., n, L) and blinding (..., 4, L) -> (..., 3n+5, L); stacked
@@ -127,6 +129,7 @@ def r_x1_poly(assignment: DeviceAssignment, cns) -> Laurent:
     return Laurent(-(2 * assignment.n + 4), r_x1_batch(assignment, cns))
 
 
+@span("sonic.poly.build")
 def r_at_y_batch(coeffs: torch.Tensor, ys: torch.Tensor, offset: int) -> torch.Tensor:
     """r'(X, y) coefficients from r'(X, 1)'s: coeffs (..., D, L) at
     exponents offset.. and ys (..., L) -> coeff * y^e, (..., D, L)."""
@@ -181,6 +184,7 @@ def s_at_y_batch(circuits: DeviceCircuit, ys: torch.Tensor) -> torch.Tensor:
     return torch.cat([u.flip(-2), zero, v, w], -2)
 
 
+@span("sonic.poly.build")
 def s_at_y(circuit: DeviceCircuit, y) -> Laurent:
     """s(X, y): dense over exponents [-n, 2n] (Constraints.hs:34-53 with
     Y := y fused in)."""
@@ -192,6 +196,7 @@ def s_at_y(circuit: DeviceCircuit, y) -> Laurent:
 s_at_y_batched = s_at_y_batch
 
 
+@span("sonic.poly.s_uY")
 def s_at_u_batch(circuits: DeviceCircuit, us: torch.Tensor) -> torch.Tensor:
     """s(u, Y) coefficients at offset -n: us (*B, L) for a circuit (or a
     stack) with batch axes B -> (*B, 2n+q+1, L). The Y^(n+q) coefficients
@@ -233,6 +238,7 @@ def s_at_u_of_y(circuit: DeviceCircuit, u) -> Laurent:
     return Laurent(-circuit.n, s_at_u_batch(circuit, u))
 
 
+@span("sonic.poly.build")
 def k_at_y(circuit: DeviceCircuit, n: int, y):
     """k(y) = sum_q cs_q y^(n+q) (Constraints.hs:67-68); batched over the
     circuit's leading axes and y's."""

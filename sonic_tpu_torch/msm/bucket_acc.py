@@ -57,8 +57,11 @@ import torch
 from ..curve.group import Affine, GroupOps, Jacobian, g1
 from ..fields import limb
 from ..fields.limb import FQ
+from ..utils.trace import span
 
+# kernel-2 launches, and the mixed additions (plan entries) of every bucket_sums call
 launches = 0
+entries = 0
 
 CPU_STEPS = 32
 MERGE_FAN = 2
@@ -113,6 +116,7 @@ def _pick_chunks(entries: int, device: torch.device) -> int:
     return -(-entries // CPU_STEPS)
 
 
+@span("sonic.msm.plan")
 def make_plan(inf: torch.Tensor, digits: torch.Tensor, nbuckets: int,
               chunks: int | None = None) -> Plan:
     """The plan for points with infinity flags `inf` (N,) and digits (N, W)
@@ -231,12 +235,17 @@ def bucket_sums_plain(points: Affine, plan: Plan, group: GroupOps = g1) -> Jacob
     return parts.map(lambda a: a.reshape(plan.shape + a.shape[1:]))
 
 
+@span("sonic.msm.bucket_sums")
 def bucket_sums(points: Affine, plan: Plan) -> Jacobian:
     """Bucket sums (M, W, B) of `plan` over `points`: the plain version on
-    the CPU, kernel 2 on CUDA."""
+    the CPU, kernel 2 on CUDA. Adds the plan's entries to `entries`."""
+    global entries
     if plan.key.device.type == "cpu":
-        return bucket_sums_plain(points, plan)
-    return _launch(points, plan)
+        out = bucket_sums_plain(points, plan)
+    else:
+        out = _launch(points, plan)
+    entries += plan.entries
+    return out
 
 
 def _pack(a: torch.Tensor) -> torch.Tensor:

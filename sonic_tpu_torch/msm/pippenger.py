@@ -53,6 +53,7 @@ import torch
 from .. import budget
 from ..curve.group import Affine, GroupOps, Jacobian, cat, g1, g2
 from ..fields import constants as C
+from ..utils.trace import span
 from .bucket_acc import bucket_sums, bucket_sums_plain, make_plan
 
 DEFAULT_C = 8  # the reference's default window size (bits); the fixed-base tables' c
@@ -123,6 +124,7 @@ def _tree_sum(p: Jacobian, dim: int, group: GroupOps) -> Jacobian:
     return p.map(lambda a: a.squeeze(dim))
 
 
+@span("sonic.msm.weighted_sum")
 def _bucket_weighted_sum(buckets: Jacobian, group: GroupOps = g1) -> Jacobian:
     """(..., W, B) -> (..., W): sum_b b * bucket_b = sum_{b>=1} S_b with the
     suffix sums S_b = sum_{j>=b} bucket_j, taken as a log-depth
@@ -162,6 +164,7 @@ class WindowTotals:
     group: GroupOps = g1
 
 
+@span("sonic.msm.combine")
 def combine_windows(parts: list[WindowTotals]) -> list[Jacobian]:
     """Finish MSMs: sum_w totals[w] << (c w) for each part, returned with
     the part's leading shape. The combine is a serial chain of ~c W group
@@ -185,6 +188,7 @@ def combine_windows(parts: list[WindowTotals]) -> list[Jacobian]:
     return out
 
 
+@span("sonic.msm.lay_out")
 def _lay_out(scalars_std: torch.Tensor, c):
     """Signed digits (..., N, W) of the scalars at window size c (None: the
     device's choice), with c and the bucket count B = 2^(c-1) + 1."""

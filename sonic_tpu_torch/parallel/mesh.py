@@ -27,6 +27,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..curve.group import GroupOps, Jacobian, g1
 from ..msm import pippenger
+from ..utils.trace import span
 
 
 def make_mesh(n: int | None = None) -> DeviceMesh:
@@ -61,7 +62,8 @@ def all_gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     in rank order; the same tensor on every rank."""
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(mesh.size())]
-    dist.all_gather(out, t, group=mesh.get_group())
+    with span("sonic.comm.all_gather", bytes=t.nbytes):
+        dist.all_gather(out, t, group=mesh.get_group())
     return torch.cat(out, 0)
 
 
@@ -71,7 +73,8 @@ def all_to_all_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     leading axis."""
     t = t.contiguous()
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=mesh.get_group())
+    with span("sonic.comm.all_to_all", bytes=t.nbytes):
+        dist.all_to_all_single(out, t, group=mesh.get_group())
     return out
 
 

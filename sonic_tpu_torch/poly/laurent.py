@@ -17,6 +17,7 @@ import torch
 from .. import budget
 from ..fields import limb
 from ..fields.limb import FR
+from ..utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +130,7 @@ def _ntt_threshold() -> int:
     return int(v) if v else _NTT_THRESHOLD
 
 
+@span("sonic.poly.mul")
 def mul(p: Laurent, q: Laurent, mesh=None) -> Laurent:
     """Polynomial product: schoolbook below `_ntt_threshold()` pairwise
     products, NTT at or above it. With `mesh`, the NTT is the four-step
@@ -199,6 +201,7 @@ def limb_is_zero_host(x) -> bool:
     return bool((x == 0).all())
 
 
+@span("sonic.poly.div")
 def div_by_linear(p: Laurent, z, fz=None):
     """w(X) = (f(X) - f(z)) / (X - z), exact. Returns (f(z), w) with w at
     offset p.offset and length p.length - 1."""
@@ -232,6 +235,7 @@ def add_batched(offset_a: int, a: torch.Tensor, offset_b: int, b: torch.Tensor):
     return lo, limb.add(pad(offset_a, a), pad(offset_b, b), FR)
 
 
+@span("sonic.poly.mul")
 def mul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, Da, L) x (M, Db, L) -> (M, Da+Db-1, L); NTT at the threshold,
     its instances in slices within the step budget at `budget.COEFF_BYTES`
@@ -253,6 +257,7 @@ def evaluate_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
     return _eval(coeffs.transpose(0, 1), zs, offset)
 
 
+@span("sonic.poly.div")
 def div_by_linear_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
     """(f_j(X) - f_j(z_j)) / (X - z_j) for coeffs (M, D, L), zs (M, L) ->
     (fz (M, L), quotients (M, D-1, L) at the same offset). X^0 must lie in

@@ -53,6 +53,7 @@ from .poly import laurent
 from .poly.laurent import Laurent, evaluate
 from .signature import hsc_assemble, hsc_checks, hsc_prove_device
 from .srs import SRS
+from .utils.trace import span
 
 # (B, helper slices) -> calls of prove_batch; breakdown's phase tables read it
 helper_slicings: collections.Counter = collections.Counter()
@@ -121,6 +122,7 @@ def _prove_phases(srs, assignment, circuit, cns_m, y_m, z_m, ys_st, zs_st, u_m, 
     return parts, scal
 
 
+@span("sonic.prove")
 def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
           rnd: gp.Randomness, mesh=None) -> tuple[gp.Proof, gp.RndOracle]:
     """Protocol.hs:47-109 with explicit randomness; device compute on the
@@ -152,8 +154,9 @@ def prove(srs: SRS, assignment: DeviceAssignment, circuit: DeviceCircuit,
     )
     # ONE batched affine conversion + ONE fetch for all 4m+7 points and
     # 2m+4 scalars of the proof
-    pts = jacobians_to_host(allj)
-    evs = [int(v) for v in FR.to_int(scal)]
+    with span("sonic.protocol.fetch"):
+        pts = jacobians_to_host(allj)
+        evs = [int(v) for v in FR.to_int(scal)]
     a_i, b_i, s_i, tc_i = evs[:4]
     _check_t_hole([tc_i])
     fzs_i, s2_i = evs[4 : 4 + m], evs[4 + m :]
@@ -211,6 +214,7 @@ def _cat(parts: list) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+@span("sonic.prove_batch")
 def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=None) -> list:
     """B independent, shape-identical circuits in one device pipeline
     (BASELINE config 5). zkP_1-3 batch over the proof axis: one r'(X,1)
@@ -262,7 +266,8 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
     t_c, szy = [], []
     for lo, hi in _proof_slices(B, budget.COEFF_BYTES * (4 * n + 5)):
         cir = stack_circuits(circuits[lo:hi])
-        s_y = s_at_y_batch(cir, ys[lo:hi])  # (k, 3n+1, L) at -n
+        with span("sonic.poly.build"):
+            s_y = s_at_y_batch(cir, ys[lo:hi])  # (k, 3n+1, L) at -n
         k_y = k_at_y_batch(cir, n, ys[lo:hi])
         del cir
         szy.append(laurent.evaluate_batched(-n, s_y, zs[lo:hi]))
@@ -290,30 +295,35 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
     # kind of MSM keeps its slices' window totals in proof order
     kinds = [[] for _ in range(6)]  # cms, ws, w2, qs, c, qv
     fzs, s2 = [], []
-    for lo, hi in cut:
-        cir = stack_circuits(circuits[lo:hi])
-        s = s_at_y_batch(cir, ys_h[lo:hi]).flatten(0, 1)  # (k m, 3n+1, L)
-        su = s_at_u_batch(cir, us[lo:hi])  # (k, 2n+q+1, L) at -n
-        del cir
-        u_rep = us[lo:hi].repeat_interleave(m, 0)
-        cms = commit_poly_batched(srs, srs.d, -n, s, check_hole=False, mesh=mesh)
-        fz, ws = open_poly_batched(srs, zs_h[lo * m : hi * m], -n, s, mesh)
-        _, w2 = open_poly_batched(srs, u_rep, -n, s, mesh)
-        del s
-        c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False, mesh=mesh)
-        s2_k, qs = open_poly_batched(srs, ys_h[lo:hi].flatten(0, 1), -n, su.repeat_interleave(m, 0), mesh)
-        _, qv = open_poly_batched(srs, vs[lo:hi], -n, su, mesh)
-        del su
-        for kind, part in zip(kinds, (cms, ws, w2, qs, c, qv)):
-            kind.append(part)
-        fzs.append(fz)
-        s2.append(s2_k)
+    with span("sonic.protocol.helper"):
+        for lo, hi in cut:
+            cir = stack_circuits(circuits[lo:hi])
+            with span("sonic.poly.s_yj"):
+                s = s_at_y_batch(cir, ys_h[lo:hi]).flatten(0, 1)  # (k m, 3n+1, L)
+            su = s_at_u_batch(cir, us[lo:hi])  # (k, 2n+q+1, L) at -n
+            del cir
+            u_rep = us[lo:hi].repeat_interleave(m, 0)
+            cms = commit_poly_batched(srs, srs.d, -n, s, check_hole=False, mesh=mesh)
+            fz, ws = open_poly_batched(srs, zs_h[lo * m : hi * m], -n, s, mesh)
+            _, w2 = open_poly_batched(srs, u_rep, -n, s, mesh)
+            del s
+            c = commit_poly_batched(srs, srs.d, -n, su, check_hole=False, mesh=mesh)
+            s2_k, qs = open_poly_batched(srs, ys_h[lo:hi].flatten(0, 1), -n, su.repeat_interleave(m, 0),
+                                         mesh)
+            _, qv = open_poly_batched(srs, vs[lo:hi], -n, su, mesh)
+            del su
+            for kind, part in zip(kinds, (cms, ws, w2, qs, c, qv)):
+                kind.append(part)
+            fzs.append(fz)
+            s2.append(s2_k)
 
     # ONE window combine, ONE batched to_affine + fetch for all B(4m+7)
     # points, and one fetch for the 4B + 2Bm scalars
-    pts = jacobians_to_host(stack_points(combine_windows(
-        [commit_r, commit_t, wa, wb, wt] + [part for kind in kinds for part in kind])))
-    evs = [int(v) for v in FR.to_int(torch.cat([a_m, b_m, szy, t_const] + fzs + s2, 0))]
+    allj = stack_points(combine_windows(
+        [commit_r, commit_t, wa, wb, wt] + [part for kind in kinds for part in kind]))
+    with span("sonic.protocol.fetch"):
+        pts = jacobians_to_host(allj)
+        evs = [int(v) for v in FR.to_int(torch.cat([a_m, b_m, szy, t_const] + fzs + s2, 0))]
     a_i, b_i, s_i, tc_i = (evs[k * B : (k + 1) * B] for k in range(4))
     _check_t_hole(tc_i)
     fzs_i, s2_i = evs[4 * B : 4 * B + B * m], evs[4 * B + B * m :]

@@ -33,6 +33,7 @@ from .fields.limb import FR
 from .msm.pippenger import WindowTotals
 from .poly.laurent import evaluate
 from .srs import SRS
+from .utils.trace import span
 
 # (m, n, slices of the m instances) -> calls of hsc_prove_device;
 # breakdown's phase tables read it
@@ -54,6 +55,7 @@ def _cat_windows(parts: list) -> WindowTotals:
     return WindowTotals(cat([p.totals for p in parts]), parts[0].c, parts[0].group)
 
 
+@span("sonic.protocol.helper")
 def hsc_prove_device(srs: SRS, circuit: DeviceCircuit, ys, zs, u_m, v_m, mesh=None):
     """Device compute of hscProve (Signature.hs:32-72). ys, zs: (m, L)
     Montgomery challenge stacks, m >= 1. Returns (cms, ws, w2, qs, c, qv
@@ -92,7 +94,8 @@ def hsc_sj_device(srs: SRS, circuit: DeviceCircuit, ys, zs, mesh=None):
     """The S_j block of hscProve (Signature.hs:40-47): batched s(X, y_j)
     builds, batched commit, batched opening at z_j."""
     n = circuit.n
-    s_coeffs = s_at_y_batched(circuit, ys)  # (m, 3n+1, L)
+    with span("sonic.poly.s_yj"):
+        s_coeffs = s_at_y_batched(circuit, ys)  # (m, 3n+1, L)
     cms = commit_poly_batched(srs, srs.d, -n, s_coeffs, check_hole=False, mesh=mesh)
     fzs, ws = open_poly_batched(srs, zs, -n, s_coeffs, mesh)
     return s_coeffs, cms, fzs, ws

@@ -1,5 +1,6 @@
 """JAX-free copy of `sonic_tpu/utils/log.py`. Below this docstring the code
-is the original's, line for line.
+is the original's, line for line, apart from `phase_timer`, which times
+its phase as one of the port's spans (`utils/trace.py`).
 
 `sonic_tpu/__init__.py` imports jax whenever any of its submodules is
 imported, and `sonic_tpu/` stays as it is, so the port carries its own
@@ -24,6 +25,7 @@ import json
 import os
 import sys
 import time
+from .trace import span  # in the block above, so the lines below match the original's
 
 
 class _Logger:
@@ -58,9 +60,13 @@ def get_logger(name: str) -> _Logger:
 
 @contextlib.contextmanager
 def phase_timer(log: _Logger, phase: str, **fields):
-    """Time one protocol phase (setup / commit / open / hsc / verify)."""
-    t0 = time.perf_counter()
+    """Time one protocol phase (setup / commit / open / hsc / verify) as
+    the span `sonic.<logger>.<phase>` (the logger's name said once), with
+    `fields` as its attributes, and log its seconds on the spans' clock."""
+    name = phase if phase.startswith(log.name + ".") else f"{log.name}.{phase}"
+    t0 = time.perf_counter_ns()
     try:
-        yield
+        with span(f"sonic.{name}", **fields):
+            yield
     finally:
-        log.info(phase, seconds=round(time.perf_counter() - t0, 4), **fields)
+        log.info(phase, seconds=round((time.perf_counter_ns() - t0) / 1e9, 4), **fields)

@@ -339,14 +339,14 @@ def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
 
     from sonic_tpu_torch.fields import limb
     from sonic_tpu_torch.fields.limb import FR
-    from sonic_tpu_torch.utils.trace import annotate, device_trace
+    from sonic_tpu_torch.utils.trace import device_trace, span
 
     monkeypatch.delenv("SONIC_TPU_TRACE_DIR", raising=False)
     with device_trace():  # no directory: no trace
         pass
     a = FR.from_int([3, 4, 5])
     with device_trace(str(tmp_path)):
-        with annotate("sonic.test_span"):
+        with span("sonic.test_span"):
             limb.mul(a, a, FR)
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
