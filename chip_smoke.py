@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels (csrc/ -> sonic_tpu_torch/_build/) and the native
+Builds the CUDA kernels (csrc/ -> sonic_tpu_torch/_build/) and the native
 pairing library (native/pairing.cpp), then runs, each phase timed after
 torch.cuda.synchronize():
 
@@ -32,7 +32,13 @@ torch.cuda.synchronize():
               ones at M=64 included; the first of them timed) is kept and
               then held, output for output, against bucket_sums_plain on
               the same inputs; kernel 1 is timed at its most-launched
-              shape, on random operands of that shape.
+              shape, on random operands of that shape; kernel 3 (the
+              MSM tail) on the inputs of one more prove's window combine
+              (R = 4m + 7 = 263 MSMs) and of its largest weighted sum (the
+              helper's M = 64 MSMs), each equal to its plain twin (the
+              combine in projective form, the weighted sum affine) and
+              timed beside the plain twin and beside one row alone (the
+              serial chain that bounds it);
   6. full SRS SRS.new(h_mode="full") at d = 2^16 (all four tables on the
               card, G2 over Fq2, fixed-base window tables), timed, with
               each group's window table and fixed_base_mul timed: 64
@@ -126,8 +132,10 @@ word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
 Every path (phase 3's G2 MSM, phases 5-13) runs with the launch counters
-set to 0 just before it and read just after, and fails if a kernel it uses
-was never launched; phase 9's launches are summed over its ranks. Inside
+of kernels 1-3 set to 0 just before it and read just after, and fails if
+a kernel it uses was never launched (every path that proves or runs a G1
+MSM uses all three; the G2 MSM and the SRS builds kernel 1 alone);
+phase 9's launches are summed over its ranks. Inside
 every path (on every rank) the first kernel-1 launch of each operand
 shape is held against mont_mul_plain as it runs; the timers leave the
 seconds of these checks out, and a path's peak memory their allocations.
@@ -161,7 +169,8 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_CLOCK_PER_SM = 64  # 32-bit integer multiply-add, compute capability 9.0
-IMAD_PER_MIXED_ADD = 11 * 2 * 12 * 12 * 2
+FQ_WORDS = 12
+IMAD_PER_MIXED_ADD = 11 * 2 * FQ_WORDS * FQ_WORDS * 2
 
 DEVICE = "cuda"
 K1_N = 1 << 20  # phase 2: products per field
@@ -245,11 +254,11 @@ def plain_err(out, a, b, spec, limit: int = 1 << 20) -> int:
 
 
 class Path:
-    """Drives one path of the port: both launch counters are set to 0 on
-    entry and read on exit. The first kernel-1 launch of each operand
-    shape is held against mont_mul_plain as it happens (`plain_err`; the
-    errors go to `k1_err`), and kernel-1 launches are counted by shape.
-    It keeps the inputs of every kernel-2 launch (of the first
+    """Drives one path of the port: the launch counters of kernels 1, 2
+    and 3 are set to 0 on entry and read on exit. The first kernel-1
+    launch of each operand shape is held against mont_mul_plain as it
+    happens (`plain_err`; the errors go to `k1_err`), and kernel-1
+    launches are counted by shape. It keeps the inputs of every kernel-2 launch (of the first
     `keep_sums`, when given; with `sums_by_shape`, of the first launch of
     each plan shape (M, W, B) and point count N), so that kernel 2 can be
     held against its plain version afterwards. With `check_sums_s`, it
@@ -267,7 +276,7 @@ class Path:
 
     check_s = 0.0
 
-    def __init__(self, name: str, uses=("mont_mul", "bucket_sums"), keep_sums: int | None = None,
+    def __init__(self, name: str, uses=("mont_mul", "bucket_sums", "msm_tail"), keep_sums: int | None = None,
                  sums_by_shape: bool = False, check_sums_s: float | None = None):
         self.name, self.uses, self.keep_sums, self.sums_by_shape = name, uses, keep_sums, sums_by_shape
         self.check_sums_s = check_sums_s
@@ -338,7 +347,7 @@ class Path:
         import torch
 
         from sonic_tpu_torch.fields import mont_mul
-        from sonic_tpu_torch.msm import bucket_acc, pippenger
+        from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
 
         self._real = real_sums, real_mul, real_plan = pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan
         self._sums_wait, self._rates = 0.0, []
@@ -391,7 +400,7 @@ class Path:
         pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_check
         if self.sums_by_shape or self.check_sums_s is not None:
             pippenger.make_plan = plan_keep
-        mont_mul.launches = bucket_acc.launches = 0
+        mont_mul.launches = bucket_acc.launches = tail.launches = 0
         if torch.cuda.is_available():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -401,9 +410,10 @@ class Path:
         import torch
 
         from sonic_tpu_torch.fields import mont_mul
-        from sonic_tpu_torch.msm import bucket_acc, pippenger
+        from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
 
-        self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches}
+        self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches,
+                         "msm_tail": tail.launches}
         pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan = self._real
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -521,7 +531,7 @@ def main() -> int:
     from sonic_tpu_torch.fields import limb, mont_mul
     from sonic_tpu_torch.fields.limb import FQ, FR
     from sonic_tpu_torch import srs as srs_module
-    from sonic_tpu_torch.msm import bucket_acc, fixed_base, pippenger
+    from sonic_tpu_torch.msm import bucket_acc, fixed_base, pippenger, tail
     from sonic_tpu_torch.multichip import table_digest
     from sonic_tpu_torch.poly import laurent
     from sonic_tpu_torch.srs import SRS
@@ -817,6 +827,59 @@ def main() -> int:
             k2_main = (ms, plain_ms, bound)
     del main_path
 
+    # kernel 3 on the inputs of one more prove's tail: its window combine
+    # (R = 4m + 7 MSMs) and its weighted sum with the most rows (the
+    # helper's M = 64 MSMs), held against the plain twins on the same
+    # tensors; the serial chain's time is the kernel's on one row
+    tails = {}
+    real_ws, real_wc = pippenger._bucket_weighted_sum, pippenger._window_combine
+
+    def ws_keep(buckets, group=g1):
+        if group is g1 and buckets.x.numel() > (tails["ws"].x.numel() if "ws" in tails else 0):
+            tails["ws"] = buckets
+        return real_ws(buckets, group)
+
+    def wc_keep(totals, c, group=g1):
+        tails.setdefault("wc", (totals, c))
+        return real_wc(totals, c, group)
+
+    pippenger._bucket_weighted_sum, pippenger._window_combine = ws_keep, wc_keep
+    try:
+        protocol.prove(srs, da, dc, rnd)
+    finally:
+        pippenger._bucket_weighted_sum, pippenger._window_combine = real_ws, real_wc
+    wc_in, wc_c = tails["wc"]
+    ws_in = tails["ws"]
+    wc_rows, W_ = wc_in.x.shape[0], wc_in.x.shape[-2]
+    ws_rows, B_ = ws_in.x[..., 0, 0].numel(), ws_in.x.shape[-2]
+    k3 = {}
+    for kname, kern, plain, one, rows, products in (
+        ("window_combine", lambda: tail.window_combine(wc_in, wc_c),
+         lambda: tail.window_combine_plain(wc_in, wc_c),
+         lambda: tail.window_combine(wc_in.map(lambda a: a[:1]), wc_c),
+         wc_rows, (W_ - 1) * (wc_c * 8 + 12)),
+        ("bucket_weighted_sum", lambda: tail.bucket_weighted_sum(ws_in),
+         lambda: tail.bucket_weighted_sum_plain(ws_in),
+         lambda: tail.bucket_weighted_sum(ws_in.map(lambda a: a.reshape(-1, B_, FQ.nlimbs)[:1])),
+         ws_rows, 2 * (B_ - 1) * 12),
+    ):
+        got, want = kern(), plain()
+        if kname == "bucket_weighted_sum":
+            got, want = g1.to_affine(got), g1.to_affine(want)
+        sync()
+        if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+            raise AssertionError(f"kernel 3 {kname} over {rows} rows differs from its plain twin")
+        err = max(int((g_.long() - w_.long()).abs().max()) for g_, w_ in zip(got, want))
+        ms, plain_ms, chain_ms = event_ms(kern, 10), event_ms(plain, 2), event_ms(one, 10)
+        bound = rows * products * 4 * FQ_WORDS * FQ_WORDS / imad_per_ms
+        k3[kname] = {"rows": rows, "products_a_row": products, "ms": ms, "plain_ms": plain_ms,
+                     "imad_bound_ms": bound, "chain_ms": chain_ms, "max_abs_err": err}
+        log(f"phase 5 kernel 3 {kname}: {rows} rows ({products} dependent Fq products a row), equal to its "
+            f"plain twin ({'in projective form' if kname == 'window_combine' else 'affine'}); kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms; one row alone (the serial chain) {chain_ms:.3f} ms, "
+            f"multiply-add bound {bound:.4f} ms")
+    del tails, wc_in, ws_in, got, want
+
     # -- phase 6: full SRS at d = 2^16 ----------------------------------------------------------
     srng = random.Random(6)
     sx, salpha = srng.randrange(2, gp.P), srng.randrange(2, gp.P)
@@ -1054,7 +1117,8 @@ def main() -> int:
         for r in range(WORLD):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-    paths["multi_rank"] = {k: sum(rk["launches"][k] for rk in ranks) for k in ("mont_mul", "bucket_sums")}
+    paths["multi_rank"] = {k: sum(rk["launches"][k] for rk in ranks)
+                           for k in ("mont_mul", "bucket_sums", "msm_tail")}
     k1_err.extend(ranks[0]["k1_err"])
     k2_err.extend(ranks[0]["k2_err"])
     r0 = ranks[0]
@@ -1417,10 +1481,19 @@ def main() -> int:
          "huge": {k: dict(zip(("shape", "npoints", "entries", "ms", "plain_ms", "bound_ms"), v))
                   for k, v in huge_k2.items()},
          "big_batch": big_batch_k2},
+        {"name": "msm_tail", "route": "cuda", "source": "sonic_tpu_torch/csrc/msm_tail.cu",
+         "replaces": None, "plain_of": "sonic_tpu/msm/pippenger.py _bucket_weighted_sum, _window_combine (jnp)",
+         "launches": total("msm_tail"), "launches_by_path": {k: v["msm_tail"] for k, v in paths.items()},
+         "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
+         "ms": k3["window_combine"]["ms"], "plain_ms": k3["window_combine"]["plain_ms"],
+         "bound_ms": k3["window_combine"]["chain_ms"], "bound_by": "latency: one row's serial chain",
+         "library_ms": None, "entries": k3},
     ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "
-        f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f}); "
+        + "".join(f"kernel 3 {k} over {v['rows']} rows: {v['ms']:.3f} ms (one row {v['chain_ms']:.3f}, "
+                  f"plain {v['plain_ms']:.1f}); " for k, v in k3.items())
+        + f"batch's largest launch: {k2_batch[0]:.3f} ms (bound {k2_batch[2]:.3f}, plain {k2_batch[1]:.3f}); "
         + "; ".join(f"big {k} {v[0]} over N={v[1]}, E={v[2]}: {v[3]:.3f} ms (bound {v[5]:.3f}, plain "
                     f"{'not timed; held on its last MSM row' if v[4] is None else f'{v[4]:.3f}'})" for k, v in big_k2.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

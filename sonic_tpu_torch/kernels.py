@@ -83,5 +83,9 @@ def lib():
         so.sonic_bucket_merge.argtypes = [vp, vp, vp, vp, i, vp]
         so.sonic_bucket_sums_fill.restype = ll
         so.sonic_bucket_sums_fill.argtypes = [i]
+        so.sonic_bucket_weighted_sum.restype = i
+        so.sonic_bucket_weighted_sum.argtypes = [vp, vp, vp, vp, ll, i, vp]
+        so.sonic_window_combine.restype = i
+        so.sonic_window_combine.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
         _LIB = so
     return _LIB

@@ -7,14 +7,16 @@ Port of `sonic_tpu/msm/pippenger.py` (signed digits only):
     sorted by (MSM, window, |digit|)) and the bucket sums over it (kernel 2,
     `msm/bucket_acc.py`), which hold each (MSM, window, |digit|) bucket's
     sum directly: no lanes, so no lane fold;
-  - the tail in plain torch: buckets weighted-summed, windows combined
-    with c doublings each.
+  - the tail (`msm/tail.py`): buckets weighted-summed, windows combined
+    with c doublings each; G1 on CUDA as kernel 3, one launch each,
+    otherwise as the plain twins (batched torch group ops).
 
 `group` selects the curve group (`g1` by default, as the reference's
 `msm_g1`; `msm_g2` for G2); `msm(g1, points, scalars)`, the reference's
 order, runs too (`group_first_too`). G1 bucket sums are kernel 2's; G2
 has no kernel, as in the reference, and runs the same plan through
-`bucket_sums_plain` over G2, whose Fq2 products are kernel 1's on the card.
+`bucket_sums_plain` over G2, whose Fq2 products are kernel 1's on the card,
+and the plain tail.
 
 `msm_batched` runs M MSMs that share one point table with one batched
 tail. Their digits, plan and bucket sums are built in slices of the M
@@ -37,10 +39,10 @@ combine, so a caller with many MSMs (the prover) finishes them all in one
 batched `combine_windows`. With a mesh, each rank takes a slice of the
 points (`msm_windows`), and the budget applies to that slice.
 
-Window size: c = 6 on CUDA (B = 33 buckets, W = 44 windows), which keeps
-the plain-torch bucket weighted sum short; larger c would cut the scan's
-entries (~256/c per scalar) but double the buckets per step of c. On the
-CPU (the tests' plain path) c follows the reference's CPU `_pick_c`.
+Window size: c = 6 on CUDA (B = 33 buckets, W = 44 windows); larger c
+would cut the scan's entries (~256/c per scalar) but double the buckets
+per step of c. On the CPU (the tests' plain path) c follows the
+reference's CPU `_pick_c`.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from .. import budget
 from ..curve.group import Affine, GroupOps, Jacobian, cat, g1, g2
 from ..fields import constants as C
 from ..utils.trace import span
+from . import tail
 from .bucket_acc import bucket_sums, bucket_sums_plain, make_plan
 
 DEFAULT_C = 8  # the reference's default window size (bits); the fixed-base tables' c
@@ -111,47 +114,23 @@ def _signed_digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(outs, -1)
 
 
-def _tree_sum(p: Jacobian, dim: int, group: GroupOps) -> Jacobian:
-    """Sum a Jacobian batch along batch axis `dim` (>= 0) as a halving tree
-    of batched complete additions."""
-    n = p.x.shape[dim]
-    while n > 1:
-        h = n // 2
-        s = group.add(p.map(lambda a: a.narrow(dim, 0, h)), p.map(lambda a: a.narrow(dim, h, h)))
-        if n % 2:
-            s = cat([s, p.map(lambda a: a.narrow(dim, 2 * h, 1))], dim)
-        p, n = s, s.x.shape[dim]
-    return p.map(lambda a: a.squeeze(dim))
-
-
 @span("sonic.msm.weighted_sum")
 def _bucket_weighted_sum(buckets: Jacobian, group: GroupOps = g1) -> Jacobian:
-    """(..., W, B) -> (..., W): sum_b b * bucket_b = sum_{b>=1} S_b with the
-    suffix sums S_b = sum_{j>=b} bucket_j, taken as a log-depth
-    (Hillis-Steele) scan, then summed as a halving tree."""
-    bd = buckets.x.dim() - group.F.coord_ndim - 1  # the bucket axis
-    s = buckets.map(lambda a: a.narrow(bd, 1, a.shape[bd] - 1))
-    n = s.x.shape[bd]
-    step = 1
-    while step < n:
-        head = s.map(lambda a: a.narrow(bd, 0, n - step))
-        tail = s.map(lambda a: a.narrow(bd, step, n - step))
-        added = group.add(head, tail)
-        s = cat([added, s.map(lambda a: a.narrow(bd, n - step, step))], bd)
-        step *= 2
-    return _tree_sum(s, bd, group)
+    """(..., W, B) -> (..., W): sum_b b * bucket_b. G1 on CUDA: kernel 3
+    (`tail.bucket_weighted_sum`, equal as group elements to the plain
+    twin); otherwise `tail.bucket_weighted_sum_plain`."""
+    if group is g1 and buckets.x.is_cuda:
+        return tail.bucket_weighted_sum(buckets.map(lambda a: a.contiguous()))
+    return tail.bucket_weighted_sum_plain(buckets, group)
 
 
 def _window_combine(totals: Jacobian, c: int, group: GroupOps = g1) -> Jacobian:
-    """(..., W) window totals -> sum_w totals[w] << (c w), by Horner's rule."""
-    wd = totals.x.dim() - group.F.coord_ndim - 1  # the window axis
-    W = totals.x.shape[wd]
-    res = totals.map(lambda a: a.select(wd, W - 1))
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            res = group.double(res)
-        res = group.add(res, totals.map(lambda a: a.select(wd, w)))
-    return res
+    """(..., W) window totals -> sum_w totals[w] << (c w), by Horner's rule.
+    G1 on CUDA: kernel 3 (`tail.window_combine`, bit-equal to the plain
+    twin); otherwise `tail.window_combine_plain`."""
+    if group is g1 and totals.x.is_cuda:
+        return tail.window_combine(totals.map(lambda a: a.contiguous()), c)
+    return tail.window_combine_plain(totals, c, group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,6 +57,7 @@ COUNTERS = {
     "mont_mul.launches": (f"{_PKG}.fields.mont_mul", "launches"),
     "bucket_acc.launches": (f"{_PKG}.msm.bucket_acc", "launches"),
     "bucket_acc.entries": (f"{_PKG}.msm.bucket_acc", "entries"),
+    "msm_tail.launches": (f"{_PKG}.msm.tail", "launches"),
 }
 
 

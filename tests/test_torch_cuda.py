@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA card: each CUDA kernel against its plain
-version on the same CUDA tensors, the pinned example2 proof on the card,
+version on the same CUDA tensors (kernel 3, the MSM tail, at the main
+path's shapes and in a prove), the pinned example2 proof on the card,
 a proof batch and a full SRS on the card against their CPU results, and
 a sharded prove (a rank a card, or two ranks sharing the one card)
 against the single-rank one.
@@ -12,6 +13,7 @@ there without the repository's conftest.py:
 
 All comparisons are exact (every value is an integer).
 """
+import dataclasses
 import json
 import os
 import random
@@ -23,11 +25,11 @@ from sonic_tpu_torch import golden, protocol, serial
 from sonic_tpu_torch import golden_protocol as gp
 from sonic_tpu_torch.circuit import example_circuit_2, random_circuit
 from sonic_tpu_torch.constraints import DeviceAssignment, DeviceCircuit
-from sonic_tpu_torch.curve.group import Affine
+from sonic_tpu_torch.curve.group import Affine, g1, g2
 from sonic_tpu_torch.fields import limb, mont_mul
 from sonic_tpu_torch.fields.constants import R_MOD
 from sonic_tpu_torch.fields.limb import FQ, FR
-from sonic_tpu_torch.msm import bucket_acc
+from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
 from sonic_tpu_torch.srs import SRS
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +113,151 @@ def test_bucket_acc_kernel_equals_plain(dev, batch):
         cpu = bucket_acc.bucket_sums_plain(Affine(*(a.cpu() for a in pts)), plan.to("cpu"))
         for g, w in zip(got, cpu):
             assert torch.equal(g.cpu(), w)
+
+
+def _grid(rng, R, K, dev, special=None):
+    """G1 points (R, K) on the card in projective form: host points from a
+    pool of 24 and infinity, some rows set by `special(rows, pool)`, each
+    point scaled by a random nonzero lambda (infinity becomes (0 : lambda
+    : 0)). Also returns the host rows."""
+    pool = [golden.g1_mul(golden.G1_GEN, rng.randrange(1, R_MOD)) for _ in range(24)] + [None]
+    rows = [[rng.choice(pool) for _ in range(K)] for _ in range(R)]
+    if special is not None:
+        special(rows, pool)
+    flat = [p for row in rows for p in row]
+    base = g1.from_affine(g1.from_host(flat, dev))
+    lam = FQ.from_int([rng.randrange(1, FQ.modulus) for _ in flat], device=dev)
+    return base.map(lambda a: limb.mul(a, lam, FQ).reshape(R, K, FQ.nlimbs)), rows
+
+
+def _host_sum(terms):
+    acc = None
+    for p, k in terms:
+        if p is not None:
+            acc = golden.g1_add(acc, golden.g1_mul(p, k))
+    return acc
+
+
+@pytest.mark.parametrize("R, W, c", [(263, 44, 6), (624, 44, 6), (5, 3, 2), (4, 1, 16)])
+def test_window_combine_kernel_equals_plain(dev, R, W, c):
+    """Kernel 3's window combine bit for bit, in projective form, against
+    window_combine_plain at the prove's (R = 263) and prove_batch's
+    (R = 624) shapes and small ones: row 0 all at infinity, row 1 with
+    totals[W-2] = 2^c totals[W-1] (the first addition meets P + P), row 2
+    every window equal, and infinity among the other totals. Rows 0-2 also
+    against the golden host sums."""
+    rng = random.Random(1000 * R + W)
+
+    def special(rows, pool):
+        rows[0] = [None] * W
+        if W > 1:
+            rows[1][W - 1], rows[1][W - 2] = pool[0], golden.g1_mul(pool[0], 1 << c)
+        rows[2] = [pool[1]] * W
+
+    totals, rows = _grid(rng, R, W, dev, special)
+    before = tail.launches
+    got = tail.window_combine(totals, c)
+    assert tail.launches == before + 1
+    assert got.x.shape == (R, FQ.nlimbs)
+    want = tail.window_combine_plain(totals, c)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(pippenger._window_combine(totals, c), got):
+        assert torch.equal(g, w)
+    assert tail.launches == before + 2
+    host = g1.to_host(g1.to_affine(got.map(lambda a: a[:3])))
+    assert host == [_host_sum((p, 1 << (c * w)) for w, p in enumerate(rows[r])) for r in range(3)]
+
+
+@pytest.mark.parametrize("M", [64, 1])
+def test_bucket_weighted_sum_kernel_equals_plain(dev, M):
+    """Kernel 3's weighted sum against bucket_weighted_sum_plain as group
+    elements (after to_affine) over M MSMs' (W = 44, B = 33) bucket sums:
+    empty buckets throughout, row 0 all at infinity, row 1 with only
+    bucket 0 (which the sum skips) finite. Rows 0-2 also against the
+    golden host sums."""
+    W, B = 44, 33
+    rng = random.Random(2000 + M)
+
+    def special(rows, pool):
+        rows[0] = [None] * B
+        rows[1] = [pool[0]] + [None] * (B - 1)
+
+    flat, rows = _grid(rng, M * W, B, dev, special)
+    buckets = flat.map(lambda a: a.reshape(M, W, B, FQ.nlimbs))
+    before = tail.launches
+    got = pippenger._bucket_weighted_sum(buckets)
+    assert tail.launches == before + 1
+    assert got.x.shape == (M, W, FQ.nlimbs)
+    want = tail.bucket_weighted_sum_plain(buckets)
+    for g, w in zip(g1.to_affine(got), g1.to_affine(want)):
+        assert torch.equal(g, w)
+    host = g1.to_host(g1.to_affine(got.map(lambda a: a.reshape(-1, FQ.nlimbs)[:3])))
+    assert host == [_host_sum((p, b) for b, p in enumerate(rows[r]) if b) for r in range(3)]
+
+
+def test_tail_kernel_rejects_what_it_does_not_take(dev):
+    totals, _ = _grid(random.Random(3), 2, 3, dev)
+    odd = totals.map(lambda a: torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape))
+    assert odd.x.data_ptr() % 16 == 8
+    bad = [
+        (ValueError, totals.map(lambda a: a.transpose(0, 1))),
+        (ValueError, odd),
+        (ValueError, totals.map(lambda a: a.cpu())),
+        (ValueError, totals.map(lambda a: a[..., :16])),
+        (TypeError, totals.map(lambda a: a.to(torch.int32))),
+    ]
+    before = tail.launches
+    for err, p in bad:
+        with pytest.raises(err):
+            tail.window_combine(p, 6)
+        with pytest.raises(err):
+            tail.bucket_weighted_sum(p)
+    with pytest.raises(ValueError):
+        tail.window_combine(totals, 17)
+    assert tail.launches == before
+
+
+@pytest.mark.parametrize("n, q", [(1024, 64), (16, 8)])
+def test_prove_on_the_card_runs_kernel_3(dev, monkeypatch, n, q):
+    """protocol.prove on the card, kernel 3 launched once for each weighted
+    sum and each window combine the prove asks for. At the main path's
+    n = 1024, q = 64 (the tail's shapes, R = 4m + 7 = 263 and the helper's
+    M = 64, do not depend on n) byte-equal to the card's prove with the
+    plain tail; at n = 16, q = 8 byte-equal to the CPU's prove (the CPU
+    takes minutes at q = 64, over ten at n = 1024). The G2 MSMs of msm_g2
+    launch no kernel 3."""
+    rng = random.Random(42)
+    circuit, assignment = random_circuit(rng, n=n, q=q)
+    x, alpha = rng.randrange(2, gp.P), rng.randrange(2, gp.P)
+    rnd = gp.Randomness.generate(rng, m=q)
+    srs = SRS.new(7 * n + 20, x, alpha, h_mode="verifier", n_hints=[n], device=dev)
+    calls = []
+    for name in ("_bucket_weighted_sum", "_window_combine"):
+        real = getattr(pippenger, name)
+        monkeypatch.setattr(pippenger, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
+
+    def run(device):
+        on = dataclasses.replace(srs, g_x=Affine(*(a.to(device) for a in srs.g_x)),
+                                 g_ax=Affine(*(a.to(device) for a in srs.g_ax)))
+        proof, _ = protocol.prove(on, DeviceAssignment.from_host(assignment, device=device),
+                                  DeviceCircuit.from_host(circuit, device=device), rnd)
+        return serial.proof_to_bytes(proof)
+
+    before = tail.launches
+    got = run(dev)
+    card = len(calls)
+    assert tail.launches - before == card and calls.count("_window_combine") == 1
+    if q == 64:
+        monkeypatch.setattr(tail, "bucket_weighted_sum", tail.bucket_weighted_sum_plain)
+        monkeypatch.setattr(tail, "window_combine", tail.window_combine_plain)
+        assert run(dev) == got
+    else:
+        assert run("cpu") == got
+    assert tail.launches - before == card
+    g2_host = [golden.g2_mul(golden.G2_GEN, k) for k in (3, 5)]
+    pippenger.msm_g2(g2.from_host(g2_host, dev), FR.from_int([7, 11], mont=False, device=dev))
+    assert tail.launches - before == card
 
 
 def _example2():
