@@ -1,14 +1,15 @@
 """One run of one cell: set-up, the measured window, the check of every
 proof the window made against the plain reference, and the result.
 
-Set-up makes the cell's inputs from the seed (`gen`), builds the SRS on
-the device from the seed's trapdoor (`SRS.new`, in the configuration's
-mode), uploads the circuits and the witness pool, and makes one warm-up
-call of each kind the traffic uses. The window is a closed loop of one
-client: a call starts while less than `seconds` have passed since the
-window opened, and every call runs whole. Each request takes the next
-witness of the pool and fresh randomness; nothing but the circuits'
-weights and the SRS is kept from one request to the next.
+Set-up makes the cell's inputs from the seed (the configuration's
+circuit family and `gen`), builds the SRS on the device from the seed's
+trapdoor (`SRS.new`, in the configuration's mode), uploads the circuits
+and the witness pool (the family's upload, or `upload_dense`), and makes
+one warm-up call of each kind the traffic uses. The window is a closed
+loop of one client: a call starts while less than `seconds` have passed
+since the window opened, and every call runs whole. Each request takes
+the next witness of the pool and fresh randomness; nothing but the
+circuits' weights and the SRS is kept from one request to the next.
 
 With trace, the window's first call runs under the profiler (no timers)
 and the others under the synchronising timers and counters the cell's
@@ -24,13 +25,13 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from sonic_tpu_torch import golden_protocol as gp
@@ -80,11 +81,7 @@ def load_spec(workload: str, root: str = ROOT) -> Spec:
 
 def load_metric(name: str):
     """benchmark/metrics/<name>.py: `read(run)` and what it needs traced."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    mod_spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod
+    return gen.load(os.path.join(HERE, "metrics", name + ".py"), f"benchmark_metric_{name}")
 
 
 def flatten(proof) -> list:
@@ -140,12 +137,38 @@ def _timed(fn, device):
     return out, time.perf_counter() - t0
 
 
+def upload_dense(rows: tuple, witnesses: list, config: dict, device) -> list:
+    """The default upload: the circuit's rows as dense (Q, n) matrices,
+    int64 where every weight is below 2^63, through `DeviceCircuit.from_host`,
+    and one DeviceCircuit a witness that differs only in its cs."""
+    mats = []
+    for r in rows:
+        small = bool((r.vals < 2**63).all())
+        m = np.zeros((r.q, r.n), np.int64 if small else object)
+        m[np.repeat(np.arange(r.q), np.diff(r.indptr)), r.cols] = r.vals.astype(np.int64) if small else r.vals
+        mats.append(m)
+    dc = DeviceCircuit.from_host(ArithCircuit(GateWeights(*mats), witnesses[0].cs), device=device)
+    return [dataclasses.replace(dc, cs=FR.from_int(w.cs, device=device)) for w in witnesses]
+
+
+def load_upload(config: dict):
+    """`upload(rows, witnesses, config, device)` of the configuration's
+    circuit family: `<name>.upload.py` beside the family's file where there
+    is one (it may import the port), `upload_dense` where there is none."""
+    name = gen.circuit_name(config)
+    path = os.path.join(gen.CIRCUITS, name + ".upload.py")
+    if not os.path.exists(path):
+        return upload_dense
+    return gen.load(path, f"benchmark_circuit_{name}_upload").upload
+
+
 class Cell:
     """The cell's inputs, on the device, made from the seed."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device, mesh=None):
         self.seed, self.device, self.mesh = seed, torch.device(device), mesh
-        self.n, self.q, self.d = config["gates"], config["linear_constraints"], config["d"]
+        self.config, self.d = config, config["d"]
+        self.n, self.m = config["gates"], gen.helper_instances(config)
         self.batch = config.get("batch", 1)
         self.kind, self.verify, self.pool = traffic["call"], traffic["verify"], traffic["witness_pool"]
         if (self.kind == "prove") != (self.batch == 1):
@@ -153,20 +176,18 @@ class Cell:
         x, alpha = gen.trapdoor(seed)
         self.srs = SRS.new(self.d, x, alpha, h_mode=config["srs_mode"], n_hints=[self.n],
                            device=self.device, mesh=mesh)
+        fam, upload = gen.family(config), load_upload(config)
         self.dcs, self.das = [], []
         for c in range(self.batch):
-            w = gen.weights(seed, c, self.n, self.q)
-            wits = [gen.witness(seed, c, k, w) for k in range(self.pool)]
-            dc = DeviceCircuit.from_host(ArithCircuit(GateWeights(w[0], w[1], w[2]), wits[0].cs),
-                                         device=self.device)
-            self.dcs.append([dataclasses.replace(dc, cs=FR.from_int(wt.cs, device=self.device))
-                             for wt in wits])
+            rows = fam.rows(seed, c, config)
+            wits = [fam.witness(seed, c, k, config, rows) for k in range(self.pool)]
+            self.dcs.append(upload(rows, wits, config, self.device))
             self.das.append([DeviceAssignment.from_host(Assignment(wt.aL, wt.aR, wt.aO),
                                                         device=self.device) for wt in wits])
 
     def jobs(self, what: str, k: int) -> list:
         """Request k's proofs: [(circuit, witness, gen.Rnd)]."""
-        return [(c, k % self.pool, gen.randomness(self.seed, what, k * self.batch + c, self.q))
+        return [(c, k % self.pool, gen.randomness(self.seed, what, k * self.batch + c, self.m))
                 for c in range(self.batch)]
 
     def prove(self, jobs: list, to_program) -> list:
@@ -307,10 +328,10 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace_on: bool, device="cuda
 
     jobs = [j for m in made for j in m[0]]
     t_ref = time.perf_counter()
-    want = reference.expected(seed, cell.n, cell.q, cell.d, jobs, workers or max(
+    want = reference.expected(seed, cell.config, jobs, workers or max(
         1, min(len(jobs), (os.cpu_count() or 2) - 1)))
     log(f"reference {time.perf_counter() - t_ref:.3f} s for {len(jobs)} proofs")
-    size = len(reference.names(cell.q))
+    size = len(reference.names(cell.m))
     mismatched = missing = 0
     failed = set()  # indices of the proofs that are wrong on some rank, missing or refused
     for s in shared:

@@ -31,7 +31,10 @@ The proof's elements, in the order of `names(m)`:
 The module imports numpy and the standard library only: nothing of the
 port, of the JAX package or of jax. Proofs are worked out in worker
 processes (`expected`), each of which makes the inputs again from the
-seed with `gen`.
+seed and the configuration, with its circuit family and `gen`. Omega,
+s and k sum over the weights' nonzeros and over Q with numpy's object
+arrays (gathers, products and `reduceat`), never over a dense Q x n
+matrix or a loop in Python over rows.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ def names(m: int) -> list:
 def powers(a: int, n: int) -> np.ndarray:
     """[a^1, ..., a^n] mod P as an object array (two short ladders and
     their outer product)."""
-    k = 256
+    k = max(1, min(256, n))
     lo, p = [], 1
     for _ in range(k):
         p = p * a % P
@@ -82,47 +85,40 @@ def geom(w: int, n: int) -> int:
     return w * (pow(w, n, P) - 1) * pow(w - 1, -1, P) % P
 
 
+def over_q(vals, b: int, n: int) -> int:
+    """sum_q vals_q b^(n+1+q) mod P, over the Q entries of `vals`."""
+    vals = np.asarray(vals, dtype=object)
+    return pow(b, n, P) * int(np.dot(vals, powers(b, vals.size)) % P) % P
+
+
 class Circuit:
-    """One circuit's weights, as rows of nonzero entries."""
+    """One circuit's weights as sparse rows (the family's `gen.Rows` of
+    wL, wR and wO)."""
 
-    def __init__(self, w: np.ndarray):
-        self.q, self.n = w.shape[1], w.shape[2]
-        self.rows = [[(idx, None if all(v == 1 for v in ws) else np.array(ws, dtype=object))
-                      for idx, ws in mat] for mat in gen.weight_rows(w)]
+    def __init__(self, rows: tuple):
+        self.rows = rows
+        self.q, self.n = rows[0].q, rows[0].n
 
-    def _sums(self, k: int, pw: np.ndarray) -> list:
-        out = []
-        for idx, ws in self.rows[k]:
-            if idx.size == 0:
-                out.append(0)
-            elif ws is None:
-                out.append(int(pw[idx].sum()))
-            else:
-                out.append(int(np.dot(ws, pw[idx])))
-        return out
-
-    def omega(self, a: int) -> list:
-        """[Omega_q(a) for each q]."""
+    def omega(self, a: int) -> np.ndarray:
+        """[Omega_q(a) for each q], an object array."""
         pos, neg = powers(a, self.n), powers(pow(a, -1, P), self.n)
-        an = int(pos[-1])
-        return [(lw + rw + an * ow) % P
-                for lw, rw, ow in zip(self._sums(0, neg), self._sums(1, pos), self._sums(2, pos))]
+        wl, wr, wo = self.rows
+        return (wl.products(neg) + wr.products(pos) + int(pos[-1]) * wo.products(pos)) % P
 
-    def s(self, om: list, a: int, b: int) -> int:
+    def s(self, om: np.ndarray, a: int, b: int) -> int:
         """s(a, b) from Omega(a)."""
         n = self.n
-        acc, beta = 0, pow(b, n + 1, P)
-        for o in om:
-            acc += beta * o
-            beta = beta * b % P
-        return (acc - pow(a, n, P) * (geom(a * b, n) + geom(a * pow(b, -1, P), n))) % P
+        return (over_q(om, b, n) - pow(a, n, P) * (geom(a * b, n) + geom(a * pow(b, -1, P), n))) % P
 
 
 class Reference:
-    """Works out the proofs of one cell's inputs (`gen`, from the seed)."""
+    """Works out the proofs of one cell's inputs (the configuration's
+    circuit family and `gen`, from the seed)."""
 
-    def __init__(self, seed: int, n: int, q: int, d: int):
-        self.seed, self.n, self.q, self.d = seed, n, q, d
+    def __init__(self, seed: int, config: dict):
+        self.seed, self.config = seed, config
+        self.n, self.d = config["gates"], config["d"]
+        self.family = gen.family(config)
         self.x, self.alpha = gen.trapdoor(seed)
         self.fb = g1.FixedBase()
         self._circuits, self._witnesses = {}, {}
@@ -130,14 +126,14 @@ class Reference:
     def circuit(self, c: int):
         """(Circuit, Omega(x)) of circuit c."""
         if c not in self._circuits:
-            cir = Circuit(gen.weights(self.seed, c, self.n, self.q))
+            cir = Circuit(self.family.rows(self.seed, c, self.config))
             self._circuits[c] = (cir, cir.omega(self.x))
         return self._circuits[c]
 
     def witness(self, c: int, k: int):
         """(Witness, aL, aR, aO as object arrays) of circuit c's witness k."""
         if (c, k) not in self._witnesses:
-            w = gen.witness(self.seed, c, k, gen.weights(self.seed, c, self.n, self.q))
+            w = self.family.witness(self.seed, c, k, self.config, self.circuit(c)[0].rows)
             self._witnesses[(c, k)] = (w,) + tuple(np.array(v, dtype=object) for v in (w.aL, w.aR, w.aO))
         return self._witnesses[(c, k)]
 
@@ -170,7 +166,7 @@ class Reference:
             return num * pow((den) % P, -1, P) % P
 
         rx, rz, ryz, rxy = rho(x), rho(z), rho(y * z), rho(x * y)
-        ky = sum(cq * pow(y, n + 1 + q, P) for q, cq in enumerate(cs)) % P
+        ky = over_q(cs, y, n)
         om_z = cir.omega(z)
         s_xy, s_zy = cir.s(om_x, x, y), cir.s(om_z, z, y)
         t_x = (rx * (rxy + s_xy) - ky) % P
@@ -197,9 +193,9 @@ class Reference:
 _REF = None
 
 
-def _init(seed: int, n: int, q: int, d: int) -> None:
+def _init(seed: int, config: dict) -> None:
     global _REF
-    _REF = Reference(seed, n, q, d)
+    _REF = Reference(seed, config)
 
 
 def _job(job) -> list:
@@ -207,7 +203,7 @@ def _job(job) -> list:
     return _REF.proof(c, k, rnd)
 
 
-def expected(seed: int, n: int, q: int, d: int, jobs: list, workers: int) -> list:
+def expected(seed: int, config: dict, jobs: list, workers: int) -> list:
     """The reference's proof for each (circuit, witness, Rnd) of `jobs`, in
     order, over `workers` worker processes (in this one when 1).
 
@@ -218,7 +214,7 @@ def expected(seed: int, n: int, q: int, d: int, jobs: list, workers: int) -> lis
     every worker has ended, killed if need be, before this returns or
     raises."""
     if workers <= 1 or len(jobs) <= 1:
-        _init(seed, n, q, d)
+        _init(seed, config)
         return [_job(j) for j in jobs]
     shares = [list(range(w, len(jobs), workers)) for w in range(min(workers, len(jobs)))]
     procs = []
@@ -227,7 +223,7 @@ def expected(seed: int, n: int, q: int, d: int, jobs: list, workers: int) -> lis
             p = subprocess.Popen([sys.executable, "-c", _WORKER], cwd=ROOT, stdin=subprocess.PIPE,
                                  stdout=subprocess.PIPE)
             procs.append(p)
-            p.stdin.write(pickle.dumps((seed, n, q, d, [jobs[i] for i in share])))
+            p.stdin.write(pickle.dumps((seed, config, [jobs[i] for i in share])))
             p.stdin.close()
         out = [None] * len(jobs)
         for share, p in zip(shares, procs):
@@ -251,7 +247,7 @@ _WORKER = f"import sys; sys.path.insert(0, {ROOT!r}); from benchmark import refe
 def _serve() -> None:
     """A worker of `expected`: its jobs from standard input, its proofs to
     standard output."""
-    seed, n, q, d, jobs = pickle.load(sys.stdin.buffer)
-    _init(seed, n, q, d)
+    seed, config, jobs = pickle.load(sys.stdin.buffer)
+    _init(seed, config)
     sys.stdout.buffer.write(pickle.dumps([_job(j) for j in jobs]))
     sys.stdout.buffer.flush()

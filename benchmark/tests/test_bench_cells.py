@@ -4,12 +4,17 @@ and the faults and the control each seen to make `correct` false.
 
 The cells' configurations are cut to n = 8 gates, q = 2 (d = 76) and
 B = 2; the traffic files are the cells' own. The mesh cell runs four
-gloo ranks in spawned processes.
+gloo ranks in spawned processes. A configuration that names another
+circuit family (the test family in `circuits/`: Q > n, empty rows and
+rows of several entries, weights P - 1, and m != q) runs from its own
+BENCHMARK.json and config file, with its own upload and with the default.
 """
 import json
 import os
+import shutil
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +22,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
 
-from benchmark import control, harness  # noqa: E402
+from benchmark import control, gen, harness  # noqa: E402
 
 TINY = {"gates": 8, "linear_constraints": 2, "d": 76}
 SEED = 2**31 + 977
@@ -58,9 +63,9 @@ def test_the_reference_workers_agree_and_all_end(monkeypatch):
             started.append(self)
 
     monkeypatch.setattr(reference.subprocess, "Popen", Popen)
-    n, q, d = TINY["gates"], TINY["linear_constraints"], TINY["d"]
-    jobs = [(0, k % 2, gen.randomness(SEED, "window", k, q)) for k in range(3)]
-    assert reference.expected(SEED, n, q, d, jobs, 2) == reference.expected(SEED, n, q, d, jobs, 1)
+    config = _spec("prove.n16q64").config
+    jobs = [(0, k % 2, gen.randomness(SEED, "window", k, TINY["linear_constraints"])) for k in range(3)]
+    assert reference.expected(SEED, config, jobs, 2) == reference.expected(SEED, config, jobs, 1)
     assert len(started) == 2 and all(p.returncode == 0 for p in started)
 
 def test_a_traced_run_reads_no_device_metric_from_the_cpu():
@@ -90,6 +95,51 @@ def test_an_answer_altered_where_it_is_made_is_not_correct(workload, monkeypatch
     assert not res["correct"] and res["checks"]["mismatched_elements"]["value"] >= 1
     if workload == "prove.n16q64":
         assert res["checks"]["verify_false"]["value"] >= 1
+
+
+FAMILY = {"gates": 16, "linear_constraints": 40, "d": 132, "circuit": "mixed_sparse", "helper_instances": 3}
+
+
+def _family_spec(tmp_path, monkeypatch, traffic, own_upload):
+    """A checkout whose BENCHMARK.json holds one cell of a config file that
+    names the test family, with the family's files where the loader looks."""
+    circuits = tmp_path / "circuits"
+    circuits.mkdir()
+    for f in ["mixed_sparse.py"] + ["mixed_sparse.upload.py"] * own_upload:
+        shutil.copy(os.path.join(HERE, "circuits", f), circuits)
+    monkeypatch.setattr(gen, "CIRCUITS", str(circuits))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    (tmp_path / "mixed.json").write_text(json.dumps(dict(harness.load_spec("prove.n16q64").config, **FAMILY)))
+    bench["configs"] = [{"name": "mixed", "source": "tests", "file": "mixed.json", "reduced": [], "why": "tests"}]
+    bench["workloads"] = [{"name": "prove.mixed", "config": "mixed", "traffic": traffic, "chips": 1, "why": "tests"}]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return harness.load_spec("prove.mixed", root=str(tmp_path))
+
+
+@pytest.mark.parametrize("own_upload", [True, False], ids=["own_upload", "default_upload"])
+def test_a_config_that_names_another_family_runs_correct(own_upload, tmp_path, monkeypatch):
+    spec = _family_spec(tmp_path, monkeypatch, "prove_verify", own_upload)
+    rows = gen.family(spec.config).rows(SEED, 0, spec.config)
+    widths = np.concatenate([np.diff(r.indptr) for r in rows])
+    weights = set(np.concatenate([r.vals for r in rows]).tolist())
+    assert rows[0].q > rows[0].n and (widths == 0).any() and (widths > 1).any()
+    assert gen.P - 1 in weights and 2 in weights
+    assert gen.helper_instances(spec.config) != spec.config["linear_constraints"]
+    assert (harness.load_upload(spec.config) is harness.upload_dense) is not own_upload
+    torch.set_num_threads(1)
+    res = harness.run_cell(spec, SEED, 0.0, False, "cpu", workers=1)
+    # mismatched_elements counts a proof of another length than 6m + 12
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1, res["checks"]
+    assert res["checks"]["verify_false"]["value"] == 0 and "setup_s" in res["metrics"]
+
+
+def test_an_answer_altered_in_a_family_cell_is_not_correct(tmp_path, monkeypatch):
+    spec = _family_spec(tmp_path, monkeypatch, "prove", False)
+    _alter_first_point(monkeypatch)
+    torch.set_num_threads(1)
+    res = harness.run_cell(spec, SEED, 0.0, False, "cpu", workers=1)
+    assert not res["correct"] and res["checks"]["mismatched_elements"]["value"] >= 1
 
 
 def test_half_the_batch_left_out_is_not_correct(monkeypatch):

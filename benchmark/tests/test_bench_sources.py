@@ -19,11 +19,18 @@ BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 sys.path.insert(0, ROOT)
 
-from benchmark import harness  # noqa: E402
+from benchmark import gen, harness  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "sonic_tpu"}
-# the reference and what it reads import nothing of the port either
+# the reference and what it reads import nothing of the port either: the
+# circuit families too, but for their uploads (`<name>.upload.py`)
 PLAIN = {"reference.py", "g1.py", "gen.py", "yardstick.py"}
+
+
+def _plain(path) -> bool:
+    name = os.path.basename(path)
+    in_circuits = os.path.basename(os.path.dirname(path)) == "circuits"
+    return name in PLAIN or (in_circuits and not name.endswith(".upload.py"))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -51,7 +58,7 @@ def _top_imports(path) -> set:
 def test_no_module_imports_jax_or_the_jax_package(path):
     names = _top_imports(path)
     assert not names & FORBIDDEN, names & FORBIDDEN
-    if os.path.basename(path) in PLAIN:
+    if _plain(path):
         assert "sonic_tpu_torch" not in names and "torch" not in names, names
 
 
@@ -92,6 +99,9 @@ def test_benchmark_json_names_files_and_metrics():
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert os.path.exists(os.path.join(ROOT, c["file"]))
+        with open(os.path.join(ROOT, c["file"])) as f:
+            family = gen.circuit_name(json.load(f))
+        assert os.path.exists(os.path.join(gen.CIRCUITS, family + ".py")), family
     e2e = {m["name"] for m in b["end_to_end"]}
     assert "setup_s" in e2e
     for m in b["end_to_end"] + b["per_layer"]:
