@@ -10,6 +10,7 @@ Public API (the reference's exports):
 
     SRS.new(d, x, alpha, h_mode="full", device=) / SRS.from_host(host_srs, device=)
     DeviceCircuit.from_host(circuit, device=), DeviceAssignment.from_host(a, device=)
+    DeviceCircuit.from_rows(wL, wR, wO, cs, device=)  (sparse rows: sparse.CsrRows)
     prove(srs, assignment, circuit, rnd) -> (Proof, RndOracle)
     prove_batch(srs, assignments, circuits, rnds) -> [(Proof, RndOracle)]
     verify(srs, circuit, proof, y, z, yzs) -> bool

@@ -18,7 +18,10 @@ its peak, temporaries included, and a slice takes as many units as fit
   - `constraints.py`: an Fr product of the s(X, y) weighted sums, cut
     along q, PRODUCT_BYTES (the product, its two expanded operands and
     the adds of its sum, ~12 limb vectors of 128 B), and a (q, i) term of
-    s(u, Y)'s Y^(n+q) coefficients, cut along q too;
+    s(u, Y)'s Y^(n+q) coefficients, cut along q too; and, for a circuit
+    given as sparse rows, a term of `row_sums` (a power gathered at one
+    nonzero for one y or u: the term, its scaled copy and the kernel's
+    expanded weight operand), TERM_BYTES, cut along the nonzeros;
   - `poly/laurent.py`: a coefficient of a batched division or of a
     batched product's transform, `poly/ntt.py`: a coefficient of a batch
     of columns or rows of a product's four-step transform, taken above
@@ -63,6 +66,7 @@ from __future__ import annotations
 STEP_BYTES = 12 << 30
 SLOT_BYTES = 96
 PRODUCT_BYTES = 12 * 128
+TERM_BYTES = 4 * 128
 COEFF_BYTES = 24 * 128
 INSTANCE_BYTES = 7 * 128
 HELPER_BYTES = INSTANCE_BYTES + 3 * 128

@@ -1,6 +1,6 @@
 """Where the port's public constructors put their tensors.
 
-`SRS.new`, `SRS.from_host`, `DeviceCircuit.from_host`,
+`SRS.new`, `SRS.from_host`, `DeviceCircuit.from_host` / `from_rows`,
 `DeviceAssignment.from_host` and `convert.srs/circuit/assignment` take
 `device=None` to mean the card. On a machine without one they raise; they
 never fall back to the CPU. The CPU tests pass `device="cpu"`.

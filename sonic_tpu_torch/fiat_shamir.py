@@ -318,7 +318,14 @@ def prove_device(srs, assignment, circuit, blinding: list[int]) -> NizkProof:
 
 
 def _device_circuit_to_host(circuit) -> ArithCircuit:
-    """DeviceCircuit -> host ArithCircuit (for transcript absorption)."""
+    """DeviceCircuit -> host ArithCircuit (for transcript absorption). The
+    transcript absorbs the dense weight matrices, which a circuit given as
+    sparse rows (`DeviceCircuit.from_rows`) does not have."""
+    if circuit.rows is not None:
+        raise ValueError(
+            "fiat_shamir.prove_device absorbs the dense weight matrices into its transcript; "
+            "a circuit given as sparse rows (DeviceCircuit.from_rows) has none"
+        )
     from .circuit import GateWeights
     from .fields.limb import FR
 

@@ -422,6 +422,30 @@ def sum_mod(a, spec: FieldSpec, axis: int = 0):
     return a[0]
 
 
+# the most canonical elements `reduce_sums` takes a sum of: each of their
+# 16-bit limbs adds below 2^16 to its column, so a column stays below 2^47
+SUM_TERMS_MAX = 1 << 31
+
+
+def reduce_sums(cols, spec: FieldSpec):
+    """Limb-wise int64 sums of canonical elements -> each sum mod N,
+    canonical: cols (..., L), each entry the sum of at most SUM_TERMS_MAX
+    elements' limbs (what `index_add_` leaves), in any order and grouping.
+
+    The value V each stands for (below 2^31 N) is carried into L + 2 limbs
+    and split as V = lo + hi R with lo, hi < R. A Montgomery product is
+    canonical for any operand below R, so one stacked launch gives
+    mont_mul(lo, R mod N) = lo mod N and mont_mul(hi, R^2 mod N) = hi R
+    mod N, and one add their sum, V mod N. Montgomery form is linear, so
+    the sum of Montgomery elements is the Montgomery form of their sum."""
+    L = spec.nlimbs
+    v = _carry(cols, L + 2, 3)
+    hi = torch.nn.functional.pad(v[..., L:], (0, L - 2))
+    consts = torch.stack([spec.one(cols.device), spec.r2(cols.device)])
+    both = mul(torch.stack([v[..., :L], hi]), consts.reshape((2,) + (1,) * (cols.dim() - 1) + (L,)), spec)
+    return add(both[0], both[1], spec)
+
+
 def powers(z, spec: FieldSpec, count: int):
     """[z^0, z^1, ..., z^(count-1)] along a NEW leading axis: (count, ..., L).
 

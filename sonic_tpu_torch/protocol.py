@@ -43,6 +43,7 @@ from .constraints import (
     s_at_u_of_y,
     s_at_y,
     s_at_y_batch,
+    shared_rows,
     stack_assignments,
     stack_circuits,
 )
@@ -233,7 +234,8 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
     mod P as `prove` does). Returns [(Proof, RndOracle)] in input order.
     With `mesh`, every commit and opening shards its MSM's points over the
     ranks, as in `prove`; the batched t product stays on each rank, as in
-    the reference."""
+    the reference. Circuits given as sparse rows must share one pattern
+    (`constraints.shared_rows`)."""
     B = len(assignments)
     n = assignments[0].n
     m = len(rnds[0].ys)
@@ -241,6 +243,7 @@ def prove_batch(srs: SRS, assignments: list, circuits: list, rnds: list, mesh=No
         raise ValueError(
             f"Parameter d is not large enough: {srs.d} should be > {7 * n}"
         )
+    shared_rows(circuits)  # a mix of sparse patterns is refused before any work
     dev = assignments[0].aL.device
     cut = _helper_slices(B, m, n)
     helper_slicings[(B, len(cut))] += 1
@@ -352,7 +355,7 @@ def verify(srs: SRS, circuit: DeviceCircuit, proof: gp.Proof, y: int, z: int,
     (commitment.pcv_batch; SONIC_TPU_NO_BATCH_PCV=1 makes it check them
     one by one, the reference's shape)."""
     n = circuit.n
-    y_m = FR.from_int(y, device=circuit.wL.device)
+    y_m = FR.from_int(y, device=circuit.device)
     k_y = FR.to_int(k_at_y(circuit, n, y_m))
     t = (proof.pr_a * ((proof.pr_b + proof.pr_s) % gp.P) - k_y) % gp.P
     checks = hsc_checks(srs, circuit, yzs, proof.pr_hsc)

@@ -185,7 +185,7 @@ def hsc_assemble(B: int, m: int, c_list, qv_list, cms, fzs, ws, s2, w2, qs, us, 
 def hsc_checks(srs: SRS, circuit: DeviceCircuit, yzs, proof: gp.HscProof) -> list:
     """The 3m+1 pcV checks of hscVerify (Signature.hs:74-90) as
     (maxm, F, z, v, W) tuples; s(u, v) recomputed on the device."""
-    dev = circuit.wL.device
+    dev = circuit.device
     v_m = FR.from_int(proof.hsc_v, device=dev)
     u_m = FR.from_int(proof.hsc_u, device=dev)
     sv = FR.to_int(evaluate(s_at_y(circuit, v_m), u_m))

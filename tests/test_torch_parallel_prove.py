@@ -1,6 +1,8 @@
 """PyTorch port, sharded proving: protocol.prove(mesh=...) in gloo worlds
 of 2 and 4 ranks, every rank's proof equal, as `serial` bytes, to the JAX
-package's single-device oracle for the same inputs, and verify True.
+package's single-device oracle for the same inputs, and verify True; in
+the world of 2, the first circuit given as sparse rows too
+(`DeviceCircuit.from_rows`).
 
 Two circuits, built as tests/test_prove_sharded.py and the JAX package's
 multichip dry run build theirs: n=4, q=3 (the t(X, y) product below the
@@ -64,6 +66,18 @@ def _prove_ranks(rank, world, store, outdir):
         ok = protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
         out.append((serial.proof_to_bytes(proof), oracle.y, oracle.z, ok, sharded_ntts[-1]))
         os.environ.pop("SONIC_TPU_NTT_THRESHOLD", None)
+    if world == 2:  # the first circuit again, given as sparse rows
+        from sonic_tpu_torch.sparse import CsrRows
+
+        circuit, assignment, host_srs, rnd = _setup(random.Random(CASES[0][2]), *CASES[0][:2], random_circuit, gp)
+        srs = SRS.from_host(host_srs, device="cpu")
+        w = circuit.weights
+        dc = DeviceCircuit.from_rows(*(CsrRows.from_dense(m) for m in (w.wL, w.wR, w.wO)), circuit.cs,
+                                     device="cpu")
+        proof, oracle = protocol.prove(srs, DeviceAssignment.from_host(assignment, device="cpu"), dc, rnd,
+                                       mesh=mesh)
+        ok = protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
+        out.append((serial.proof_to_bytes(proof), oracle.y, oracle.z, ok))
     save_rank(outdir, rank, out)
 
 
@@ -86,3 +100,5 @@ def test_sharded_prove_equals_the_single_device_oracle(world, tmp_path):
             assert got[3] is True, (rank, n, q)
             # the t product took the sharded four-step NTT exactly under the threshold
             assert got[4] == (1 if threshold else 0), (rank, n, q)
+        if world == 2:
+            assert out[len(CASES)] == want[0] + (True,), rank
