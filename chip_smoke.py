@@ -124,6 +124,15 @@ torch.cuda.synchronize():
               the scalars summed mod r on each point; the first kernel-2
               launch of each kind of slice timed and held against
               bucket_sums_plain; the peak device memory.
+ 14. division kernel 4 (the openings' division, poly/div.py) at the main
+              path's division shapes: M = 64 x D = 196,609 (the helper's
+              W_j at n = 2^16, m = 64), 16 x 255,009 (the MiMC circuit's
+              Q_j over s(u, Y)), 1 x 458,757 (t's opening) and 16 x 196,613;
+              f(z) and the quotients equal to the plain version (in the
+              division's budget slices, kernel 1 and plain torch), each
+              call timed by CUDA events beside its byte bound (128 B read
+              a coefficient, 128 B written a quotient coefficient) and the
+              plain version's time and kernel-1 launches.
 
 Bounds: kernel 1's from the bytes it must move (each input read once, the
 output written once) over 3.35 TB/s; kernel 2's from its plan's mixed
@@ -132,9 +141,10 @@ word products each, a word product being two 32-bit multiply-adds (lo and
 hi), over 64 multiply-adds a clock per SM at the SM clock limit.
 
 Every path (phase 3's G2 MSM, phases 5-13) runs with the launch counters
-of kernels 1-3 set to 0 just before it and read just after, and fails if
-a kernel it uses was never launched (every path that proves or runs a G1
-MSM uses all three; the G2 MSM and the SRS builds kernel 1 alone);
+of kernels 1-4 set to 0 just before it and read just after, and fails if
+a kernel it uses was never launched (every path that proves uses all
+four, the huge MSMs the first three; the G2 MSM and the SRS builds
+kernel 1 alone);
 phase 9's launches are summed over its ranks. Inside
 every path (on every rank) the first kernel-1 launch of each operand
 shape is held against mont_mul_plain as it runs; the timers leave the
@@ -188,6 +198,10 @@ BIG_BATCH_B, BIG_BATCH_Q = 64, 8  # phase 11, at phase 10's n
 BIG_BATCH_PLAIN_BUDGET_S = 45.0  # phase 11: time for kernel 2 against bucket_sums_plain
 BIG_SRS_ROWS_CHECKED = 24  # phase 12: random rows a table against golden
 HUGE_N = 1 << 20  # phase 13: BASELINE config 4's n
+# phase 14: (M, D, offset) of the divisions timed, and timed calls of each
+POLY_DIV_SHAPES = [(64, 196_609, -65_536), (16, 255_009, -189_472), (1, 458_757, -262_148),
+                   (16, 196_613, -131_076)]
+POLY_DIV_REPS = 5
 ROW_PROBE = 1 << 18  # phase 12: rows of the fixed_base_mul whose bytes a row are measured
 
 
@@ -254,8 +268,8 @@ def plain_err(out, a, b, spec, limit: int = 1 << 20) -> int:
 
 
 class Path:
-    """Drives one path of the port: the launch counters of kernels 1, 2
-    and 3 are set to 0 on entry and read on exit. The first kernel-1
+    """Drives one path of the port: the launch counters of kernels 1-4
+    are set to 0 on entry and read on exit. The first kernel-1
     launch of each operand shape is held against mont_mul_plain as it
     happens (`plain_err`; the errors go to `k1_err`), and kernel-1
     launches are counted by shape. It keeps the inputs of every kernel-2 launch (of the first
@@ -276,7 +290,8 @@ class Path:
 
     check_s = 0.0
 
-    def __init__(self, name: str, uses=("mont_mul", "bucket_sums", "msm_tail"), keep_sums: int | None = None,
+    def __init__(self, name: str, uses=("mont_mul", "bucket_sums", "msm_tail", "poly_div"),
+                 keep_sums: int | None = None,
                  sums_by_shape: bool = False, check_sums_s: float | None = None):
         self.name, self.uses, self.keep_sums, self.sums_by_shape = name, uses, keep_sums, sums_by_shape
         self.check_sums_s = check_sums_s
@@ -348,6 +363,7 @@ class Path:
 
         from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
+        from sonic_tpu_torch.poly import div
 
         self._real = real_sums, real_mul, real_plan = pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan
         self._sums_wait, self._rates = 0.0, []
@@ -400,7 +416,7 @@ class Path:
         pippenger.bucket_sums, mont_mul.mont_mul = sums_keep, mul_check
         if self.sums_by_shape or self.check_sums_s is not None:
             pippenger.make_plan = plan_keep
-        mont_mul.launches = bucket_acc.launches = tail.launches = 0
+        mont_mul.launches = bucket_acc.launches = tail.launches = div.launches = 0
         if torch.cuda.is_available():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -411,9 +427,10 @@ class Path:
 
         from sonic_tpu_torch.fields import mont_mul
         from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
+        from sonic_tpu_torch.poly import div
 
         self.launches = {"mont_mul": mont_mul.launches, "bucket_sums": bucket_acc.launches,
-                         "msm_tail": tail.launches}
+                         "msm_tail": tail.launches, "poly_div": div.launches}
         pippenger.bucket_sums, mont_mul.mont_mul, pippenger.make_plan = self._real
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -512,6 +529,64 @@ def multi_rank(rank: int, world: int, backend: str, tmp: str) -> None:
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
+
+
+def poly_div_phase(dev, shapes=POLY_DIV_SHAPES, reps=POLY_DIV_REPS) -> dict:
+    """Phase 14: kernel 4 at each (M, D, offset) of `shapes` on random
+    canonical coefficients and nonzero points: one call (`div.divide`)
+    against the plain version in the division's budget slices (timed
+    once), then `reps` calls timed by CUDA events after a warm-up. Raises
+    on any difference; returns {"M x D": row}."""
+    import torch
+
+    from sonic_tpu_torch import budget
+    from sonic_tpu_torch.fields import mont_mul
+    from sonic_tpu_torch.fields.limb import FR
+    from sonic_tpu_torch.poly import div, laurent
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for M, D, offset in shapes:
+        coeffs = torch.randint(0, 1 << 16, (M, D, FR.nlimbs), generator=gen, device=dev)
+        coeffs[..., -1] = torch.randint(0, FR.mod_limbs[-1], (M, D), generator=gen, device=dev)
+        zs = torch.randint(0, 1 << 16, (M, FR.nlimbs), generator=gen, device=dev)
+        zs[:, -1] = torch.randint(1, FR.mod_limbs[-1], (M,), generator=gen, device=dev)
+        fz, w = div.divide(offset, coeffs, zs)
+        per = budget.per_step(budget.COEFF_BYTES * D)
+        k1 = mont_mul.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [laurent.div_by_linear_batched_plain(offset, coeffs[i : i + per], zs[i : i + per])
+                for i in range(0, M, per)]
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_k1 = mont_mul.launches - k1
+        if not (torch.equal(fz, torch.cat([f for f, _ in outs])) and torch.equal(w, torch.cat([q for _, q in outs]))):
+            raise AssertionError(f"phase 14: kernel 4 at M={M}, D={D} differs from the plain version")
+        del outs, fz, w
+        # timed as the prover calls it: each call's outputs freed before the next, so the
+        # allocator hands the same blocks back (fresh device memory costs more to first touch)
+        div.divide(offset, coeffs, zs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            div.divide(offset, coeffs, zs)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        bound_ms = 128 * (M * D + M * (D - 1)) / HBM_BYTES_PER_S * 1e3
+        K = div.chunk_len(M, D, sms)
+        rows[f"{M}x{D}"] = {"M": M, "D": D, "offset": offset, "K": K, "chunks": M * -(-D // K), "ms": ms,
+                            "bound_ms": bound_ms, "share": bound_ms / ms, "plain_ms": plain_ms,
+                            "plain_slices": -(-M // per), "plain_mont_mul_launches": plain_k1}
+        log(f"phase 14 kernel 4 M={M} D={D} (K={K}, {M * -(-D // K)} chunks): {ms:.3f} ms a call, byte bound "
+            f"{bound_ms:.3f} ms ({100 * bound_ms / ms:.1f} %); plain version {plain_ms:.1f} ms in "
+            f"{-(-M // per)} slice(s), {plain_k1} kernel-1 launches; f(z) and quotients equal")
+        del coeffs, zs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1118,7 +1193,7 @@ def main() -> int:
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     paths["multi_rank"] = {k: sum(rk["launches"][k] for rk in ranks)
-                           for k in ("mont_mul", "bucket_sums", "msm_tail")}
+                           for k in ("mont_mul", "bucket_sums", "msm_tail", "poly_div")}
     k1_err.extend(ranks[0]["k1_err"])
     k2_err.extend(ranks[0]["k2_err"])
     r0 = ranks[0]
@@ -1417,7 +1492,7 @@ def main() -> int:
                   (pippenger, "combine_windows", "tail: window combine")]
     cut_before = collections.Counter(pippenger.n_slicings)
     huge_res = {}
-    with Path("huge MSMs", sums_by_shape=True) as huge_path:
+    with Path("huge MSMs", uses=("mont_mul", "bucket_sums", "msm_tail"), sums_by_shape=True) as huge_path:
         whole_sc = folded(huge_sc["t"])
         huge_res["whole"], t_whole = timed(lambda: g1.to_affine(pippenger.msm(huge_pts, whole_sc).map(lambda a: a[None])))
         with breakdown.phase_timers(dev, msm_phases) as macc:
@@ -1462,6 +1537,12 @@ def main() -> int:
     del huge_path, huge_pts, huge_sc, huge_res, whole_sc, helper_ref, pts, plan
     log(f"phase 13: {time.perf_counter() - t13:.1f} s for the phase")
 
+    # -- phase 14: kernel 4, the openings' division, at the main path's shapes ---------------------
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    k4 = poly_div_phase(dev)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s for the phase")
+
     def total(kernel):
         return sum(p[kernel] for p in paths.values())
 
@@ -1488,6 +1569,11 @@ def main() -> int:
          "ms": k3["window_combine"]["ms"], "plain_ms": k3["window_combine"]["plain_ms"],
          "bound_ms": k3["window_combine"]["chain_ms"], "bound_by": "latency: one row's serial chain",
          "library_ms": None, "entries": k3},
+        {"name": "poly_div", "route": "cuda", "source": "sonic_tpu_torch/csrc/poly_div.cu",
+         "replaces": None, "plain_of": "sonic_tpu/poly/laurent.py div_by_linear_batched (jnp)",
+         "launches": total("poly_div"), "launches_by_path": {k: v["poly_div"] for k, v in paths.items()},
+         "max_abs_err": 0, "ms": k4["64x196609"]["ms"], "plain_ms": k4["64x196609"]["plain_ms"],
+         "bound_ms": k4["64x196609"]["bound_ms"], "bound_by": "bytes", "library_ms": None, "entries": k4},
     ], "multi_rank_launches": f"summed over the {WORLD} ranks of phase 9"}
     log(f"card: {card}; kernel 1 Fr 2^20+3: {k1['Fr'][1]:.4f} ms (bound {k1['Fr'][3]:.4f}); "
         f"kernel 2 2^16-point MSM: {k2_16_ms:.3f} ms (bound {k2_16_bound:.3f}, plain {k2_16_plain:.3f}); "

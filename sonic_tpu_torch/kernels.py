@@ -87,5 +87,7 @@ def lib():
         so.sonic_bucket_weighted_sum.argtypes = [vp, vp, vp, vp, ll, i, vp]
         so.sonic_window_combine.restype = i
         so.sonic_window_combine.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+        so.sonic_poly_div.restype = i
+        so.sonic_poly_div.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, i, ll, vp]
         _LIB = so
     return _LIB

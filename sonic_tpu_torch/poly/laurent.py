@@ -18,6 +18,7 @@ from .. import budget
 from ..fields import limb
 from ..fields.limb import FR
 from ..utils.trace import span
+from . import div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,18 +205,29 @@ def limb_is_zero_host(x) -> bool:
 @span("sonic.poly.div")
 def div_by_linear(p: Laurent, z, fz=None):
     """w(X) = (f(X) - f(z)) / (X - z), exact. Returns (f(z), w) with w at
-    offset p.offset and length p.length - 1."""
+    offset p.offset and length p.length - 1. CUDA tensors launch kernel 4
+    (`poly/div.py`), CPU tensors take the plain version below."""
+    const_pos = -p.offset
+    inside = 0 <= const_pos < p.length
+    if p.coeffs.device.type == "cuda":
+        fz, w = div.divide(p.offset, p.coeffs[None], z.reshape(1, -1),
+                           None if fz is None else fz.reshape(1, -1))
+        _check_outside(inside, fz)
+        return fz[0], Laurent(p.offset, w[0])
     if fz is None:
         fz = evaluate(p, z)
     # fhat(X) = X^(-offset) (f(X) - f(z)) is an ordinary poly with fhat(z) = 0
-    const_pos = -p.offset
     chat = p.coeffs
-    if 0 <= const_pos < p.length:
+    if inside:
         chat = chat.clone()
         chat[const_pos] = limb.sub(chat[const_pos], fz, FR)
-    elif not limb_is_zero_host(fz):
-        raise ValueError("f(z) != 0 but X^0 not inside the dense span")
+    _check_outside(inside, fz)
     return fz, Laurent(p.offset, _div_linear(chat, z))
+
+
+def _check_outside(inside: bool, fz) -> None:
+    if not inside and not limb_is_zero_host(fz):
+        raise ValueError("f(z) != 0 but X^0 not inside the dense span")
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +275,9 @@ def div_by_linear_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
     (fz (M, L), quotients (M, D-1, L) at the same offset). X^0 must lie in
     the dense span. The instances run in slices within the step budget at
     `budget.COEFF_BYTES` a coefficient (at least one instance a slice);
-    each instance's result does not depend on the slicing."""
+    each instance's result does not depend on the slicing. A slice of
+    CUDA tensors is one call of kernel 4 (`poly/div.py`), of CPU tensors
+    the plain version."""
     const_pos = -offset
     if not (0 <= const_pos < coeffs.shape[1]):
         raise ValueError("batched division requires X^0 inside the span")
@@ -273,6 +287,15 @@ def div_by_linear_batched(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
         outs = [div_by_linear_batched(offset, coeffs[i : i + per], zs[i : i + per])
                 for i in range(0, M, per)]
         return torch.cat([f for f, _ in outs]), torch.cat([w for _, w in outs])
+    if coeffs.device.type == "cuda":
+        return div.divide(offset, coeffs, zs)
+    return div_by_linear_batched_plain(offset, coeffs, zs)
+
+
+def div_by_linear_batched_plain(offset: int, coeffs: torch.Tensor, zs: torch.Tensor):
+    """`div_by_linear_batched`'s plain version, one slice: plain torch
+    over the field layer on any device (kernel 1's products on CUDA)."""
+    const_pos = -offset
     fz = evaluate_batched(offset, coeffs, zs)
     chat = coeffs.clone()
     chat[:, const_pos] = limb.sub(coeffs[:, const_pos], fz, FR)

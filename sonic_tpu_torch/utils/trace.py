@@ -58,6 +58,7 @@ COUNTERS = {
     "bucket_acc.launches": (f"{_PKG}.msm.bucket_acc", "launches"),
     "bucket_acc.entries": (f"{_PKG}.msm.bucket_acc", "entries"),
     "msm_tail.launches": (f"{_PKG}.msm.tail", "launches"),
+    "poly_div.launches": (f"{_PKG}.poly.div", "launches"),
     "constraints.row_terms": (f"{_PKG}.constraints", "row_terms"),
 }
 

@@ -1,6 +1,7 @@
 """PyTorch port on an NVIDIA card: each CUDA kernel against its plain
 version on the same CUDA tensors (kernel 3, the MSM tail, at the main
-path's shapes and in a prove), the pinned example2 proof on the card,
+path's shapes and in a prove; kernel 4, the openings' division, at its
+edge shapes and the helper's), the pinned example2 proof on the card,
 a proof batch and a full SRS on the card against their CPU results, and
 a sharded prove (a rank a card, or two ranks sharing the one card)
 against the single-rank one.
@@ -30,6 +31,7 @@ from sonic_tpu_torch.fields import limb, mont_mul
 from sonic_tpu_torch.fields.constants import R_MOD
 from sonic_tpu_torch.fields.limb import FQ, FR
 from sonic_tpu_torch.msm import bucket_acc, pippenger, tail
+from sonic_tpu_torch.poly import div, laurent
 from sonic_tpu_torch.srs import SRS
 
 pytestmark = pytest.mark.cuda
@@ -218,6 +220,151 @@ def test_tail_kernel_rejects_what_it_does_not_take(dev):
     assert tail.launches == before
 
 
+def _host_division(c, z, offset):
+    """f(z) and the quotient of (f(X) - f(z)) / (X - z) in Python ints,
+    top-down (z^offset through the inverse, 0 at z = 0 as inv(0) = 0)."""
+    zo = pow(pow(z, R_MOD - 2, R_MOD), -offset, R_MOD) if offset < 0 else pow(z, offset, R_MOD)
+    acc = 0
+    for ci in reversed(c):
+        acc = (acc * z + ci) % R_MOD
+    fz = zo * acc % R_MOD
+    ch = list(c)
+    if 0 <= -offset < len(c):
+        ch[-offset] = (ch[-offset] - fz) % R_MOD
+    w = [0] * (len(c) - 1)
+    acc = 0
+    for i in range(len(c) - 1, 0, -1):
+        acc = (acc * z + ch[i]) % R_MOD
+        w[i - 1] = acc
+    return fz, w
+
+
+def _plain_division(offset, coeffs, zs, per):
+    """The plain version on the same tensors, `per` instances at a time."""
+    outs = [laurent.div_by_linear_batched_plain(offset, coeffs[i : i + per], zs[i : i + per])
+            for i in range(0, coeffs.shape[0], per)]
+    return torch.cat([f for f, _ in outs]), torch.cat([w for _, w in outs])
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("M, D, pos, edge", [
+    (3, 5, 2, "D below one chunk"),
+    (4, 2, 1, "D = 2"),
+    (4, 2, 0, "D = 2, X^0 first"),
+    (5, 67, 16, "D not a multiple of K, X^0 first in its chunk"),
+    (5, 67, 31, "D not a multiple of K, X^0 last in its chunk"),
+    (2, 4101, 2048, "X^0 first in a block of chunks"),
+    (2, 4101, 2047, "X^0 last in a block of chunks"),
+    (64, 3073, 2049, "M = 64 at D = 3n + 1, n = 1024"),
+    (1, 458_757, 131_077, "M = 1, thousands of chunks"),
+    (64, 196_609, 131_073, "M = 64 at D = 3n + 1, n = 2^16"),
+])
+def test_poly_div_kernel_equals_plain(dev, M, D, pos, edge):
+    """Kernel 4 (`laurent.div_by_linear_batched` on CUDA tensors) byte for
+    byte against the plain version on the same tensors, and, for the small
+    shapes and two instances of the large ones, against the division in
+    Python ints; no kernel-1 launch for the division itself."""
+    K = div.chunk_len(M, D, _sms(dev))
+    if "below" in edge:
+        assert D < K
+    if "multiple" in edge:
+        assert D % K and pos % K == (0 if "first" in edge else K - 1)
+    if "block" in edge:
+        assert pos % (K * div.BLOCK) == (0 if "first" in edge else K * div.BLOCK - 1)
+    if "thousands" in edge:  # more blocks of chunks than the carry pass has threads
+        assert -(-D // K) > div.BLOCK ** 2
+    g = torch.Generator(device=dev).manual_seed(D + pos)
+    coeffs = torch.randint(0, 1 << 16, (M, D, FR.nlimbs), generator=g, device=dev)
+    coeffs[..., -1] = torch.randint(0, FR.mod_limbs[-1], (M, D), generator=g, device=dev)
+    rng = random.Random(D)
+    zs = FR.from_int([rng.randrange(1, R_MOD) for _ in range(M)], device=dev)
+    before, k1 = div.launches, mont_mul.launches
+    fz, w = laurent.div_by_linear_batched(-pos, coeffs, zs)
+    torch.cuda.synchronize()
+    slices = -(-M // laurent.budget.per_step(laurent.budget.COEFF_BYTES * D))
+    assert div.launches - before == slices and mont_mul.launches == k1
+    assert fz.shape == (M, FR.nlimbs) and w.shape == (M, D - 1, FR.nlimbs)
+    pfz, pw = _plain_division(-pos, coeffs, zs, 16)
+    assert torch.equal(fz, pfz) and torch.equal(w, pw)
+    for j in ([0, M - 1] if D > 100 else range(M)):
+        c = FR.to_int(coeffs[j].cpu())
+        hfz, hw = _host_division([int(v) for v in c], FR.to_int(zs[j].cpu()), -pos)
+        assert FR.to_int(fz[j].cpu()) == hfz
+        if D <= 100:
+            assert [int(v) for v in FR.to_int(w[j].cpu())] == hw
+        else:  # the ends of the quotient and around X^0
+            idx = [0, 1, pos - 1, pos, pos + 1, D - 3, D - 2]
+            got = FR.to_int(w[j, idx].cpu())
+            assert [int(v) for v in got] == [hw[i] for i in idx]
+
+
+@pytest.mark.parametrize("offset", [0, -3, 2])
+def test_poly_div_kernel_at_zero(dev, offset):
+    """z = 0 among the points: the quotient equals `_div_linear_seq` (the
+    closed form is wrong there), f(0) the plain version's (0 for a negative
+    offset, inv(0) = 0). At offset 2, X^0 lies outside the span: nothing
+    is subtracted, and the single form checks f(z) = 0 (true at z = 0,
+    false elsewhere)."""
+    rng = random.Random(50 - offset)
+    M, D = 3, 21
+    rows = [[rng.randrange(R_MOD) for _ in range(D)] for _ in range(M)]
+    zs_int = [0, rng.randrange(1, R_MOD), 0]
+    coeffs, zs = FR.from_int(rows, device=dev), FR.from_int(zs_int, device=dev)
+    fz, w = div.divide(offset, coeffs, zs)
+    for j in range(M):
+        hfz, hw = _host_division(rows[j], zs_int[j], offset)
+        assert FR.to_int(fz[j].cpu()) == hfz
+        assert [int(v) for v in FR.to_int(w[j].cpu())] == hw
+        want_fz = laurent.evaluate_batched(offset, coeffs[j : j + 1].cpu(), zs[j : j + 1].cpu())
+        assert torch.equal(fz[j : j + 1].cpu(), want_fz)
+        if zs_int[j] == 0:
+            chat = coeffs[j].cpu().clone()
+            if 0 <= -offset < D:
+                chat[-offset] = limb.sub(chat[-offset], want_fz[0], FR)
+            assert torch.equal(w[j].cpu(), laurent._div_linear_seq(chat, FR.zeros()))
+    p = laurent.Laurent(offset, coeffs[0])
+    if offset <= 0:
+        sfz, sw = laurent.div_by_linear(p, zs[0])
+        assert torch.equal(sfz, fz[0]) and torch.equal(sw.coeffs, w[0])
+    else:
+        sfz, sw = laurent.div_by_linear(p, zs[0])  # f(0) = 0 at offset > 0
+        assert torch.equal(sfz, fz[0]) and sw.offset == offset
+        with pytest.raises(ValueError):
+            laurent.div_by_linear(laurent.Laurent(offset, coeffs[1]), zs[1])
+
+
+def test_poly_div_single_form_equals_the_cpu(dev):
+    """`laurent.div_by_linear` on the card: one kernel-4 call, no kernel-1
+    launch, the CPU's outputs; a given f(z) is taken as it is."""
+    rng = random.Random(61)
+    f = {e: rng.randrange(R_MOD) for e in range(-700, 1300)}
+    p = laurent.Laurent.from_terms(f)
+    z = FR.from_int(rng.randrange(1, R_MOD))
+    before, k1 = div.launches, mont_mul.launches
+    fz, w = laurent.div_by_linear(laurent.Laurent(p.offset, p.coeffs.to(dev)), z.to(dev))
+    assert div.launches == before + 1 and mont_mul.launches == k1
+    cfz, cw = laurent.div_by_linear(p, z)
+    assert torch.equal(fz.cpu(), cfz) and w.offset == cw.offset and torch.equal(w.coeffs.cpu(), cw.coeffs)
+    other = FR.from_int(rng.randrange(R_MOD))
+    gfz, gw = laurent.div_by_linear(laurent.Laurent(p.offset, p.coeffs.to(dev)), z.to(dev), fz=other.to(dev))
+    cfz, cw = laurent.div_by_linear(p, z, fz=other)
+    assert torch.equal(gfz.cpu(), cfz) and torch.equal(gw.coeffs.cpu(), cw.coeffs)
+
+
+def test_poly_div_kernel_rejects_what_it_does_not_take(dev):
+    coeffs = FR.from_int([[1, 2, 3]], device=dev)
+    zs = FR.from_int([5], device=dev)
+    before = div.launches
+    for args in [(0, coeffs.cpu(), zs.cpu()), (0, coeffs[:, :0], zs), (0, coeffs, zs[:, :8]),
+                 (0, coeffs.to(torch.int32), zs), (0, coeffs[0], zs), (0, coeffs, zs.repeat(2, 1))]:
+        with pytest.raises(ValueError):
+            div.divide(*args)
+    assert div.launches == before
+
+
 @pytest.mark.parametrize("n, q", [(1024, 64), (16, 8)])
 def test_prove_on_the_card_runs_kernel_3(dev, monkeypatch, n, q):
     """protocol.prove on the card, kernel 3 launched once for each weighted
@@ -274,9 +421,9 @@ def test_pinned_example2_proof_on_the_card(dev):
     srs = SRS.from_host(host_srs, device=dev)
     dc = DeviceCircuit.from_host(circuit, device=dev)
     da = DeviceAssignment.from_host(assignment, device=dev)
-    mont_mul.launches = bucket_acc.launches = 0
+    mont_mul.launches = bucket_acc.launches = div.launches = 0
     proof, oracle = protocol.prove(srs, da, dc, rnd)
-    assert mont_mul.launches > 0 and bucket_acc.launches > 0
+    assert mont_mul.launches > 0 and bucket_acc.launches > 0 and div.launches > 0
     assert serial.proof_to_bytes(proof).hex() == proof_hex
     assert protocol.verify(srs, dc, proof, oracle.y, oracle.z, oracle.yzs)
 

@@ -17,7 +17,8 @@ from sonic_tpu.poly import laurent as jl
 from sonic_tpu.poly import ntt as jntt
 from sonic_tpu_torch.fields.constants import R_MOD
 from sonic_tpu_torch.fields.limb import FR
-from sonic_tpu_torch.poly import laurent, ntt
+from sonic_tpu_torch.poly import div, laurent, ntt
+from sonic_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -108,6 +109,56 @@ def test_batched_variants():
     assert jo == o and np.array_equal(np.asarray(js).astype(np.int64), s.numpy())
     want = jl.mul_batched(jc, jc)
     assert np.array_equal(np.asarray(want).astype(np.int64), laurent.mul_batched(tc, tc).numpy())
+
+
+@pytest.mark.parametrize("form", ["batched", "single"])
+def test_division_on_cpu_tensors_takes_the_plain_path(form, monkeypatch):
+    """CPU tensors never reach kernel 4 (`poly/div.py`): the divisions give
+    the JAX package's outputs and `poly_div.launches` stays at 0, in the
+    counter and in the `sonic.poly.div` spans' records."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel 4 called on CPU tensors")
+
+    monkeypatch.setattr(div, "launches", 0)
+    monkeypatch.setattr(div, "divide", refuse)
+    rng = random.Random(27)
+    M, D, off = 2, 13, -5
+    rows = [[rng.randrange(R_MOD) for _ in range(D)] for _ in range(M)]
+    zs = [rng.randrange(1, R_MOD) for _ in range(M)]
+    with trace.recording() as records:
+        if form == "batched":
+            jfz, jw = jl.div_by_linear_batched(off, JFR.from_int(rows), JFR.from_int(zs))
+            fz, w = laurent.div_by_linear_batched(off, FR.from_int(rows), FR.from_int(zs))
+        else:
+            terms = {off + i: v for i, v in enumerate(rows[0])}
+            jf, tf = _both(terms)
+            jfz, jwl = jl.div_by_linear(jf, JFR.from_int(zs[0]))
+            fz, wl = laurent.div_by_linear(tf, FR.from_int(zs[0]))
+            assert jwl.offset == wl.offset == off
+            jw, w = jwl.coeffs, wl.coeffs
+    assert np.array_equal(np.asarray(jfz).astype(np.int64), fz.numpy())
+    assert np.array_equal(np.asarray(jw).astype(np.int64), w.numpy())
+    assert div.launches == 0
+    spans = [r for r in records if r.name == "sonic.poly.div"]
+    assert spans and all(r.counters["poly_div.launches"] == 0 for r in spans)
+    assert trace.COUNTERS["poly_div.launches"] == ("sonic_tpu_torch.poly.div", "launches")
+
+
+@pytest.mark.parametrize("M, D, fills", [(64, 196_609, True), (16, 255_009, True), (16, 196_613, True),
+                                         (1, 458_757, False), (64, 3073, False), (3, 5, False),
+                                         (1, 7_340_053, True)])
+def test_chunk_len_follows_the_shape(M, D, fills):
+    """Kernel 4's chunk length: at least 16 coefficients, and short enough
+    that a carry-pass thread takes at most K blocks of chunks; at the helper's
+    batched shapes (M = 64 and 16 at n = 2^16) enough chunks to give each
+    of an H100's 132 SMs 1,024 chunk threads, and at t's opening at n = 2^20
+    (M = 1, D = 7n + 5) too."""
+    K = div.chunk_len(M, D, 132)
+    chunks = -(-D // K)
+    assert K >= div.MIN_CHUNK
+    assert -(-chunks // div.BLOCK ** 2) <= K
+    assert (M * chunks >= 132 * 1024) == fills
 
 
 def test_ntt_roundtrip_and_root_of_unity():
